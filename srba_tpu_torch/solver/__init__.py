@@ -1,0 +1,6 @@
+from srba_tpu_torch.solver.lm import (  # noqa: F401
+    SolverConfig,
+    WindowBatch,
+    make_lm_solver,
+)
+from srba_tpu_torch.solver.window import build_window, write_back  # noqa: F401

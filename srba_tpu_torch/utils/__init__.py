@@ -1,0 +1,1 @@
+from srba_tpu_torch.utils.profiler import Profiler  # noqa: F401

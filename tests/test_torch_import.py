@@ -1,0 +1,107 @@
+"""srba_tpu_torch imports no JAX, runs only where it is told to, and names
+what it has not ported yet."""
+
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _port_modules():
+    mods = []
+    for p in sorted((REPO / "srba_tpu_torch").rglob("*.py")):
+        parts = p.relative_to(REPO).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__"
+                             else parts))
+    return mods
+
+
+def test_every_module_imports_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                    'srba_tpu'))\n"
+        "print('LEAKED', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_cuda_without_cuda_raises(monkeypatch):
+    """No fallback: asking for CUDA where there is none raises."""
+    from srba_tpu_torch import SrbaEngine
+    from srba_tpu_torch.engine.device_master import DeviceMaster
+    from srba_tpu_torch.solver.lm import SolverConfig, make_lm_solver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SrbaEngine("RangeBearing2D", device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceMaster(3, 2, device="cuda")
+    cfg = SolverConfig(obs_model="RangeBearing2D", pose_group="SE2",
+                       lm_type="Euclidean2D", max_depth=3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_lm_solver(cfg, device="cuda")
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The kernel's wrapper launches on CUDA tensors only; the plain version
+    is chosen by spd_inverse for a CPU tensor, never by the wrapper."""
+    from srba_tpu_torch.ops.block_linalg import spd_inverse_cuda
+    m = torch.eye(2).repeat(4, 1, 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        spd_inverse_cuda(m)
+
+
+@pytest.mark.parametrize("what", [
+    "observation", "group", "landmark", "solver", "neq", "engine_path"])
+def test_unported_names_raise(what):
+    from srba_tpu_torch import SrbaEngine
+    from srba_tpu_torch.solver.lm import SolverConfig, make_solver_impl
+
+    base = dict(obs_model="RangeBearing2D", pose_group="SE2",
+                lm_type="Euclidean2D", max_depth=3)
+    with pytest.raises(NotImplementedError) as ei:
+        if what == "observation":
+            SrbaEngine("StereoCamera", device="cpu")
+        elif what == "group":
+            make_solver_impl(SolverConfig(**{**base, "pose_group": "SE3"}))
+        elif what == "landmark":
+            make_solver_impl(SolverConfig(**{**base,
+                                             "lm_type": "Euclidean3D"}))
+        elif what == "solver":
+            make_solver_impl(SolverConfig(
+                **{**base, "solver": "no_schur_dense_cholesky"}))
+        elif what == "neq":
+            make_solver_impl(SolverConfig(**{**base, "neq": "segmented"}))
+        else:
+            SrbaEngine("RangeBearing2D", device_master=False, device="cpu")
+    assert "not ported" in str(ei.value)
+
+
+def test_closure_targets_raise():
+    from srba_tpu_torch import Observation, SrbaEngine
+
+    class ClosurePolicy:
+        def edges_for_new_kf(self, state, graph, new_kf, obs_lm_ids):
+            return ([new_kf - 1] if new_kf else []), ([0] if new_kf > 1
+                                                        else [])
+
+    eng = SrbaEngine("RangeBearing2D", ecp=ClosurePolicy(), device="cpu")
+    for k in range(2):
+        eng.define_new_keyframe(
+            [Observation(lm_id=0, z=np.asarray([1.0, 0.1], np.float32))],
+            edge_init={k - 1: [0.1, 0.0, 0.0]} if k else None)
+    with pytest.raises(NotImplementedError, match="loop-closure"):
+        eng.define_new_keyframe([], edge_init={1: [0.1, 0.0, 0.0]})
