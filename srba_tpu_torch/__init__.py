@@ -16,4 +16,4 @@ from srba_tpu_torch.engine.engine import (  # noqa: F401
     SrbaParams,
     TNewKeyFrameInfo,
 )
-from srba_tpu_torch.ops.lie import SE2  # noqa: F401
+from srba_tpu_torch.ops.lie import SE2, SE3  # noqa: F401

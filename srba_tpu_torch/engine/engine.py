@@ -2,11 +2,15 @@
 :mod:`srba_tpu.engine.engine` (the reference's ``RbaEngine``).
 
 Ported so far: the device-master incremental path for landmark models with
-an inverse sensor model, chain edge-creation policies and odometry/dead-
-reckoned edge seeds — everything config #1 (2D range-bearing SE(2),
-``ClassicLinearRBA``) runs.  Loop-closure edges, graph-SLAM pose landmarks,
-monocular deferred triangulation, the host-window and mesh paths,
-``refine_map`` and ``optimize_global`` are not ported yet and raise by name.
+an inverse sensor model on SE(2) and SE(3), graph-SLAM mode (relative-pose
+observations of earlier keyframes as fixed pose landmarks, with a kf2kf
+edge to every observed keyframe beyond the tree depth), chain edge-creation
+policies and odometry/dead-reckoned edge seeds — what configs #1 (2D
+range-bearing SE(2)), #2 (3D range-bearing SE(3)) and #4 (relative-pose
+graph-SLAM) run.  ECP loop-closure edges, calibrated camera models, sensor
+mounting poses, monocular deferred triangulation, the host-window and mesh
+paths, ``refine_map`` and ``optimize_global`` are not ported yet and raise
+by name.
 
 Per keyframe the host does the integer work (allocation, edge-creation
 policy, spanning-tree paths, window selection) and the device runs ONE step
@@ -26,7 +30,8 @@ from srba_tpu_torch.ecps import ClassicLinearRBA
 from srba_tpu_torch.engine.device_master import DeviceMaster
 from srba_tpu_torch.engine.state import ProblemState
 from srba_tpu_torch.graph.spantree import KeyframeGraph
-from srba_tpu_torch.models.landmarks import LANDMARK_TYPES, Euclidean2D
+from srba_tpu_torch.models.landmarks import (LANDMARK_TYPES, Euclidean2D,
+                                             Euclidean3D)
 from srba_tpu_torch.models.noise import NoiseIdentity
 from srba_tpu_torch.models.observations import OBSERVATION_MODELS
 from srba_tpu_torch.models.sensor_pose import SensorPoseNone
@@ -118,8 +123,11 @@ class SrbaEngine:
         self.group = self.model.pose_group
         self.np_group = np_group_for(self.group)
         if lm_type is None:
-            lm_type = Euclidean2D.name if self.model.lm_dim == 2 else \
-                "Euclidean3D"
+            if self.model.is_pose_landmark:
+                lm_type = self.model.name  # RelativePoses2D/3D landmark
+            else:
+                lm_type = (Euclidean2D.name if self.model.lm_dim == 2
+                           else Euclidean3D.name)
         self.lm_type = lookup(LANDMARK_TYPES, lm_type, "landmark type")
         self.ecp = ecp if ecp is not None else ClassicLinearRBA()
         self.noise = noise if noise is not None else NoiseIdentity(1.0)
@@ -242,6 +250,8 @@ class SrbaEngine:
                         "srba_tpu_torch yet")
                 self._create_primary_edges(kf_id, primary_targets, edge_init,
                                            info)
+                if self.model.is_pose_landmark:
+                    self._create_graph_slam_edges(kf_id, observations, info)
 
             with prof.scope("ingest"):
                 # Batch the inverse-sensor-model landmark inits: one call
@@ -297,6 +307,13 @@ class SrbaEngine:
             return np.asarray(g.compose(g.inverse(G_new), G_t), np.float32)
 
         p_sigma = self.parameters.edge_prior_sigma
+        if self.model.is_pose_landmark:
+            # Graph-SLAM mode: every observation IS a direct edge
+            # measurement, so windows are never visually degenerate and an
+            # odometry prior would double-count/outvote the loop-closure
+            # observations (whose whitened weight the prior knows nothing
+            # about).
+            p_sigma = None
         for t in targets:
             # Prior weight: how much the seed is a MEASUREMENT.
             prior_w = 0.0
@@ -335,6 +352,23 @@ class SrbaEngine:
                                      g.inverse(self.state.k2k_pose[e0]))
         self._G_dr.append(G_dr_new if G_dr_new is not None
                           else np.asarray(g.identity(), np.float32))
+
+    def _create_graph_slam_edges(self, kf_id: int, observations,
+                                 info: TNewKeyFrameInfo) -> None:
+        """Graph-SLAM mode: observing a keyframe that is unreachable within
+        the tree depth IS a loop closure — create the kf2kf edge,
+        initialized from the measured relative pose itself (no prior)."""
+        for o in observations:
+            j = o.lm_id
+            if not 0 <= j < kf_id:
+                raise ValueError(
+                    "graph-SLAM observations must reference existing "
+                    f"keyframes; got {j} at kf {kf_id}")
+            if self.graph.path(kf_id, j,
+                               self.parameters.max_tree_depth) is None:
+                e = self._add_edge(kf_id, j, np.asarray(o.z, np.float32))
+                self.graph.add_edge(kf_id, j)
+                info.created_edge_ids.append(e)
 
     def _seed_globals(self):
         """Optimized global estimate, rebuilt at most every
@@ -385,6 +419,15 @@ class SrbaEngine:
             raise ValueError(
                 f"observation must be {self.model.z_dim}-d, got {z.shape}")
         internal = self._lm_id_map.get(lm_id)
+        if internal is None and self.model.is_pose_landmark:
+            # Graph-SLAM mode: the 'landmark' for keyframe j is the IDENTITY
+            # pose fixed at base j itself, so every observation of j
+            # constrains the spanning-tree path of kf2kf edges between
+            # observer and j.
+            internal = self._add_landmark(
+                lm_id, np.asarray(self.np_group.identity(), np.float32),
+                fixed=True)
+            self._lm_id_map[lm_id] = internal
         if internal is None:
             # New landmark: allocate with base = observing KF.
             if fixed_rel_pos is not None:
@@ -516,8 +559,11 @@ class SrbaEngine:
             return torch.as_tensor(np.asarray(a, np.float32),
                                    device=self.device)
 
-        pred = self.model.h(self.group.apply(
-            dev(T), dev(self.state.lm_state[obs_lm])), self.calib)
+        lm = dev(self.state.lm_state[obs_lm])
+        if self.model.is_pose_landmark:
+            pred = self.group.compose(dev(T), lm)
+        else:
+            pred = self.model.h(self.group.apply(dev(T), lm), self.calib)
         r = self.model.residual(pred, dev(self.state.obs_z[:nobs])) \
             @ dev(self._whitener).T
         err = torch.sum(torch.sum(r * r, dim=-1) * dev(reachable))

@@ -1,10 +1,13 @@
 """Observation (sensor) models — port of :mod:`srba_tpu.models.observations`
-(so far only ``RangeBearing2D``; the other eight models raise by name
-through the ``OBSERVATION_MODELS`` lookup).
+(so far the range-bearing, Cartesian and relative-pose models; the camera
+models raise by name through the ``OBSERVATION_MODELS`` lookup).
 
 As in the JAX package, ``h``/``residual`` take the landmark already
-expressed in the sensor frame (path composition happens in the solver), and
-Jacobians come from forward-mode AD of these functions.  The functions are
+expressed in the sensor frame (path composition happens in the solver; for
+the relative-pose models it is the landmark pose itself), and Jacobians come
+from forward mode through these functions: ``h_jvp`` and ``residual_jvp``
+return the value and its tangent (a trailing axis of K directions; the
+angle wrap has derivative 1).  The point models' functions are
 namespace-generic: numpy in gives numpy out (dataset generation and
 inverse-model landmark init stay on the host, bit-identical to the JAX
 package's numpy path), torch in gives torch out (the solver).
@@ -15,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from srba_tpu_torch.ops.lie import SE2
+from srba_tpu_torch.ops.lie import SE2, SE3
 
 
 def _xp(a):
@@ -42,6 +45,48 @@ class _PointObs:
     @classmethod
     def residual(cls, pred, z):
         return pred - z
+
+    @classmethod
+    def residual_jvp(cls, pred, z, dpred):
+        """The residual and its tangent (``pred - z`` up to angle wraps,
+        whose derivative is 1)."""
+        return cls.residual(pred, z), dpred
+
+
+class _Cartesian(_PointObs):
+    """Direct sensor-frame coordinates of the landmark."""
+
+    @staticmethod
+    def h(lm_in_sensor, calib=None):
+        return lm_in_sensor
+
+    @staticmethod
+    def h_jvp(pt, dpt, calib=None):
+        return pt, dpt
+
+    @staticmethod
+    def inverse(z, calib=None):
+        return z
+
+
+class Cartesian2D(_Cartesian):
+    """obs = (x, y)."""
+
+    name = "Cartesian2D"
+    obs_dim = 2
+    z_dim = 2
+    lm_dim = 2
+    pose_group = SE2
+
+
+class Cartesian3D(_Cartesian):
+    """obs = (x, y, z)."""
+
+    name = "Cartesian3D"
+    obs_dim = 3
+    z_dim = 3
+    lm_dim = 3
+    pose_group = SE3
 
 
 class RangeBearing2D(_PointObs):
@@ -78,11 +123,6 @@ class RangeBearing2D(_PointObs):
         dyaw = (xs * dy - y * dx) / (xs * xs + y * y)
         return pred, torch.stack([dr, dyaw], dim=-2)
 
-    @classmethod
-    def residual_jvp(cls, pred, z, dpred):
-        """The residual and its tangent (the angle wrap has derivative 1)."""
-        return cls.residual(pred, z), dpred
-
     @staticmethod
     def inverse(z, calib=None):
         xp = _xp(z)
@@ -90,4 +130,111 @@ class RangeBearing2D(_PointObs):
         return xp.stack([r * xp.cos(yaw), r * xp.sin(yaw)], axis=-1)
 
 
-OBSERVATION_MODELS = {m.name: m for m in [RangeBearing2D]}
+class RangeBearing3D(_PointObs):
+    """obs = (range, yaw, pitch) of a 3D landmark from the sensor."""
+
+    name = "RangeBearing3D"
+    obs_dim = 3
+    z_dim = 3
+    lm_dim = 3
+    pose_group = SE3
+
+    @staticmethod
+    def h(lm_in_sensor, calib=None):
+        xp = _xp(lm_in_sensor)
+        x, y, z = (lm_in_sensor[..., 0], lm_in_sensor[..., 1],
+                   lm_in_sensor[..., 2])
+        r = xp.sqrt(x * x + y * y + z * z + _SAFE)
+        yaw = xp.arctan2(y, x + _SAFE)
+        pitch = xp.arctan2(-z, xp.sqrt(x * x + y * y + _SAFE))
+        return xp.stack([r, yaw, pitch], axis=-1)
+
+    @classmethod
+    def residual(cls, pred, z):
+        # Both angles wrap (yaw and pitch).
+        xp = _xp(pred)
+        d = pred - z
+        return xp.concatenate([d[..., :1], _wrap(xp, d[..., 1:3])], axis=-1)
+
+    @staticmethod
+    def h_jvp(pt, dpt, calib=None):
+        """``h`` and its forward-mode tangent (torch; ``dpt [..., 3, K]``)."""
+        pred = RangeBearing3D.h(pt, calib)
+        x, y, z = pt[..., 0:1], pt[..., 1:2], pt[..., 2:3]
+        dx, dy, dz = dpt[..., 0, :], dpt[..., 1, :], dpt[..., 2, :]
+        xs = x + _SAFE
+        rho = torch.sqrt(x * x + y * y + _SAFE)
+        drho = (x * dx + y * dy) / rho
+        dr = (x * dx + y * dy + z * dz) / pred[..., 0:1]
+        dyaw = (xs * dy - y * dx) / (xs * xs + y * y)
+        # atan2(-z, rho): (rho * (-dz) - (-z) * drho) / (rho^2 + z^2)
+        dpitch = (z * drho - rho * dz) / (rho * rho + z * z)
+        return pred, torch.stack([dr, dyaw, dpitch], dim=-2)
+
+    @staticmethod
+    def inverse(z, calib=None):
+        xp = _xp(z)
+        r, yaw, pitch = z[..., 0], z[..., 1], z[..., 2]
+        cp = xp.cos(pitch)
+        return xp.stack(
+            [r * cp * xp.cos(yaw), r * cp * xp.sin(yaw), -r * xp.sin(pitch)],
+            axis=-1,
+        )
+
+
+class _RelativePoses:
+    """Graph-SLAM mode: the 'landmark' is another keyframe's relative pose
+    and the observation a measured relative pose; the solver composes the
+    path with the landmark pose (no ``apply``) and the residual is the
+    group's ``local_err(z, pred)``.  No Schur marginalization applies: the
+    pose landmarks are fixed."""
+
+    has_inverse_model = True
+    is_pose_landmark = True
+
+    @staticmethod
+    def h(lm_pose_in_obs_frame, calib=None):
+        return lm_pose_in_obs_frame
+
+    @staticmethod
+    def h_jvp(pose, dpose, calib=None):
+        return pose, dpose
+
+    @classmethod
+    def residual(cls, pred, z):
+        return cls.pose_group.local_err(z, pred)
+
+    @classmethod
+    def residual_jvp(cls, pred, z, dpred):
+        return cls.pose_group.local_err_jvp(z, pred, dpred)
+
+    @staticmethod
+    def inverse(z, calib=None):
+        return z
+
+
+class RelativePoses2D(_RelativePoses):
+    """Observation = relative SE(2) pose (x, y, yaw)."""
+
+    name = "RelativePoses2D"
+    obs_dim = 3   # residual dimension
+    z_dim = 3     # stored measurement width (SE2 pose storage)
+    lm_dim = 3    # landmark state is an SE2 pose
+    pose_group = SE2
+
+
+class RelativePoses3D(_RelativePoses):
+    """Observation = relative SE(3) pose; residual in the tangent (6)."""
+
+    name = "RelativePoses3D"
+    obs_dim = 6   # residual dimension (tangent)
+    z_dim = 7     # stored measurement width (SE3 pose storage)
+    lm_dim = 7    # SE3 pose storage
+    pose_group = SE3
+
+
+OBSERVATION_MODELS = {
+    m.name: m
+    for m in [Cartesian2D, Cartesian3D, RangeBearing2D, RangeBearing3D,
+              RelativePoses2D, RelativePoses3D]
+}

@@ -1,1 +1,1 @@
-from srba_tpu_torch.ops.lie import SE2  # noqa: F401
+from srba_tpu_torch.ops.lie import SE2, SE3  # noqa: F401

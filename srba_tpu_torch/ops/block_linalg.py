@@ -133,7 +133,8 @@ def spd_inverse_cuda(m: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on ``m`` ([..., d, d] f32, contiguous, on a
     CUDA device, d in {1, 2, 3, 6}) on the current stream.  Raises on any
     other input and on a failed build or launch.  Each launch adds one to
-    ``spd_inverse_cuda.launches``."""
+    ``spd_inverse_cuda.launches`` and to
+    ``spd_inverse_cuda.launches_by_d[d]`` (the count per block size)."""
     if m.device.type != "cuda":
         raise ValueError(f"spd_inverse_cuda needs a CUDA tensor, got "
                          f"{m.device}")
@@ -160,10 +161,13 @@ def spd_inverse_cuda(m: torch.Tensor) -> torch.Tensor:
             "spd_inverse kernel launch failed: "
             f"{lib.srba_cuda_error_string(rc).decode()} (cudaError {rc})")
     spd_inverse_cuda.launches += 1
+    by_d = spd_inverse_cuda.launches_by_d
+    by_d[d] = by_d.get(d, 0) + 1
     return out
 
 
 spd_inverse_cuda.launches = 0
+spd_inverse_cuda.launches_by_d = {}
 
 
 def spd_inverse(m: torch.Tensor) -> torch.Tensor:

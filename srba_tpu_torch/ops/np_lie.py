@@ -1,6 +1,8 @@
-"""Host-side (numpy) SE(2) operations — a copy of the SE(2) part of
-:mod:`srba_tpu.ops.np_lie` (importing that module would pull in JAX through
-``srba_tpu/__init__.py``).
+"""Host-side (numpy) SE(2)/SE(3) operations — a copy of
+:mod:`srba_tpu.ops.np_lie` without the camera-mounting helpers
+(``quat_from_matrix``, ``CAMERA_SENSOR_POSE_SE3``), which come with the
+camera models; importing that module would pull in JAX through
+``srba_tpu/__init__.py``.
 
 The engine's host bookkeeping (dead-reckoned seeds, global-map recovery,
 landmark init) composes a handful of poses at a time; these are the same
@@ -18,6 +20,58 @@ from srba_tpu_torch.utils.registry import lookup
 
 def wrap_angle(theta):
     return np.arctan2(np.sin(theta), np.cos(theta))
+
+
+# -- quaternions (w, x, y, z) ----------------------------------------------
+
+
+def quat_mul(q1, q2):
+    w1, x1, y1, z1 = np.moveaxis(q1, -1, 0)
+    w2, x2, y2, z2 = np.moveaxis(q2, -1, 0)
+    return np.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        axis=-1,
+    )
+
+
+def quat_conj(q):
+    return q * np.asarray([1.0, -1.0, -1.0, -1.0], dtype=q.dtype)
+
+
+def quat_rotate(q, v):
+    w = q[..., :1]
+    u = q[..., 1:]
+    uv = np.cross(u, v)
+    return v + 2.0 * (w * uv + np.cross(u, uv))
+
+
+def quat_normalize(q):
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def quat_exp(omega):
+    omega = np.asarray(omega, np.float64)
+    theta = np.linalg.norm(omega, axis=-1, keepdims=True)
+    theta = np.maximum(theta, 1e-12)
+    half = 0.5 * theta
+    k = np.sin(half) / theta
+    return quat_normalize(
+        np.concatenate([np.cos(half), k * omega], axis=-1))
+
+
+def quat_log(q):
+    q = np.asarray(q, np.float64)
+    sign = np.where(q[..., :1] < 0.0, -1.0, 1.0)
+    q = q * sign
+    w = np.clip(q[..., :1], -1.0, 1.0)
+    vn = np.maximum(np.linalg.norm(q[..., 1:], axis=-1, keepdims=True), 1e-12)
+    angle = 2.0 * np.arctan2(vn, w)
+    return (angle / vn) * q[..., 1:]
 
 
 class NpSE2:
@@ -80,11 +134,55 @@ class NpSE2:
         return cls.compose(pose, cls.pexp(delta))
 
 
-NP_GROUPS = {"SE2": NpSE2}
+class NpSE3:
+    dim = 7
+    dof = 6
+    point_dim = 3
+
+    @staticmethod
+    def identity(dtype=np.float32):
+        return np.asarray([0, 0, 0, 1, 0, 0, 0], dtype=dtype)
+
+    @staticmethod
+    def compose(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        t = a[..., :3] + quat_rotate(a[..., 3:], b[..., :3])
+        q = quat_normalize(quat_mul(a[..., 3:], b[..., 3:]))
+        return np.concatenate([t, q], axis=-1)
+
+    @staticmethod
+    def inverse(a):
+        a = np.asarray(a)
+        qi = quat_conj(a[..., 3:])
+        return np.concatenate([-quat_rotate(qi, a[..., :3]), qi], axis=-1)
+
+    @staticmethod
+    def apply(a, pt):
+        a, pt = np.asarray(a), np.asarray(pt)
+        return a[..., :3] + quat_rotate(a[..., 3:], pt)
+
+    @staticmethod
+    def pexp(delta):
+        delta = np.asarray(delta)
+        return np.concatenate(
+            [delta[..., :3], quat_exp(delta[..., 3:])], axis=-1)
+
+    @staticmethod
+    def plog(pose):
+        pose = np.asarray(pose)
+        return np.concatenate(
+            [pose[..., :3], quat_log(pose[..., 3:])], axis=-1)
+
+    @classmethod
+    def retract(cls, pose, delta):
+        return cls.compose(pose, cls.pexp(delta))
+
+
+NP_GROUPS = {"SE2": NpSE2, "SE3": NpSE3}
 
 
 def np_group_for(group):
-    """Map a device group descriptor (SE2) to its numpy mirror."""
+    """Map a device group descriptor (SE2/SE3) to its numpy mirror."""
     return lookup(NP_GROUPS, group.name, "pose group")
 
 

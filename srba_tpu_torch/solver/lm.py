@@ -184,11 +184,17 @@ def make_linearize(cfg: SolverConfig):
         lm, dlm = lmt.retract_jvp(
             lm0, torch.zeros((N, ldof), dtype=dt, device=dev),
             None if basis is None else basis[D * pdof:])
-        pt, dpt = group.apply_jvp(T, lm, dT, dlm)
+        if model.is_pose_landmark:
+            # graph-SLAM: compose with the landmark pose, don't project
+            pred, dpred = group.compose_jvp(T, lm, dT, dlm)
+        elif basis is None:
+            pred = model.h(group.apply(T, lm), b.calib)
+        else:
+            pt, dpt = group.apply_jvp(T, lm, dT, dlm)
+            pred, dpred = model.h_jvp(pt, dpt, b.calib)
         if basis is None:
-            r = model.residual(model.h(pt, b.calib), b.obs_z)
+            r = model.residual(pred, b.obs_z)
             return r @ b.whitener.T, None   # whitener @ r, per observation
-        pred, dpred = model.h_jvp(pt, dpt, b.calib)
         r, dr = model.residual_jvp(pred, b.obs_z, dpred)
         return (r @ b.whitener.T,
                 torch.einsum("ij,njk->nik", b.whitener, dr))

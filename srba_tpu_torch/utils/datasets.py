@@ -1,12 +1,17 @@
 """Synthetic world / dataset generation and trajectory metrics — the port of
-the 2D part of :mod:`srba_tpu.utils.datasets` (``make_world_loop_2d``,
-``observe``, ``umeyama_align``, ``ate_rmse``).
+:mod:`srba_tpu.utils.datasets` as far as the ported models go
+(``make_world_loop_2d``, ``make_world_loop_3d``, ``observe`` for the
+range-bearing and Cartesian models, ``make_graph_slam_dataset``,
+``umeyama_align``, ``ate_rmse``; the camera branch of ``observe``,
+``observe_sparse`` and ``make_world_loop_3d_large`` come with the camera
+models).
 
 Everything here is numpy on the host.  Observation values come from the
 model's ``h`` on numpy input (numpy in, numpy out), the same formulas and
 the same numpy calls as the JAX package's host path, so the same seed gives
 bit-identical datasets in both packages (``tests/test_torch_e2e_rb2d.py``
-checks it).
+and ``tests/test_torch_e2e_rb3d.py`` / ``test_torch_e2e_graphslam.py`` check
+it).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from srba_tpu_torch.utils.registry import lookup
 class World:
     """Ground-truth world: global KF poses + global landmark positions."""
 
-    group_name: str                  # "SE2"
+    group_name: str                  # "SE2" | "SE3"
     gt_poses: np.ndarray             # [K, pose_dim] global
     landmarks: np.ndarray            # [M, point_dim] global
 
@@ -61,11 +66,34 @@ def make_world_loop_2d(num_kfs: int = 100, radius: float = 10.0,
     return World("SE2", gt, lms)
 
 
+def make_world_loop_3d(num_kfs: int = 100, radius: float = 10.0,
+                       num_landmarks: int = 200, height_amp: float = 2.0,
+                       seed: int = 0) -> World:
+    """3D loop: circular path with sinusoidal height, yaw along tangent."""
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0.0, 2.0 * np.pi, num_kfs, endpoint=False)
+    xyz = np.stack(
+        [radius * np.cos(ang), radius * np.sin(ang),
+         height_amp * np.sin(2 * ang)], axis=-1)
+    yaw = ang + np.pi / 2
+    half = yaw * 0.5
+    quat = np.stack([np.cos(half), np.zeros_like(half),
+                     np.zeros_like(half), np.sin(half)], axis=-1)
+    gt = np.concatenate([xyz, quat], axis=-1).astype(np.float32)
+    r = rng.uniform(radius * 0.5, radius * 1.5, num_landmarks)
+    th = rng.uniform(0, 2 * np.pi, num_landmarks)
+    z = rng.uniform(-3.0, 5.0, num_landmarks)
+    lms = np.stack([r * np.cos(th), r * np.sin(th), z],
+                   axis=-1).astype(np.float32)
+    return World("SE3", gt, lms)
+
+
 def observe(world: World, obs_model: str, calib: Any = None,
             noise_std: float = 0.0, sensor_range: float = 6.0,
             seed: int = 0, odo_noise_std: float = 0.0) -> SlamDataset:
     """Generate per-keyframe observations + odometry for ``world`` under the
-    given (range-gated) observation model."""
+    given (range-gated) observation model.  ``calib`` must be None: the
+    calibrated (camera) models are not ported yet."""
     model = lookup(OBSERVATION_MODELS, obs_model, "observation model")
     group = lookup(NP_GROUPS, world.group_name, "pose group")
     rng = np.random.default_rng(seed + 1)
@@ -98,6 +126,52 @@ def observe(world: World, obs_model: str, calib: Any = None,
             rel = group.retract(rel, delta)
         odometry.append(np.asarray(rel, np.float32))
     return SlamDataset(world, frames, odometry, obs_model)
+
+
+def make_graph_slam_dataset(world: World, noise_std: float = 0.0,
+                            loop_closure_range: float = 2.0,
+                            odo_noise_std: float = 0.0,
+                            seed: int = 0) -> SlamDataset:
+    """Relative pose-graph dataset (graph-SLAM mode): each KF 'observes' the
+    relative pose of earlier nearby KFs.  frame[k] entries are
+    (observed_kf_id, T_k<-observed) — observed KF ids double as landmark ids
+    in the RelativePoses models."""
+    rng = np.random.default_rng(seed + 2)
+    group = lookup(NP_GROUPS, world.group_name, "pose group")
+    K = world.gt_poses.shape[0]
+    frames: List[List[Tuple[int, np.ndarray]]] = [[]]
+    odometry: List[np.ndarray] = []
+    positions = world.gt_poses[:, :2] if world.group_name == "SE2" \
+        else world.gt_poses[:, :3]
+    for k in range(1, K):
+        gt_rel = group.compose(group.inverse(world.gt_poses[k]),
+                               world.gt_poses[k - 1])
+        odo = gt_rel
+        if odo_noise_std > 0:
+            odo = group.retract(gt_rel,
+                                rng.normal(0, odo_noise_std, group.dof))
+        odometry.append(np.asarray(odo, np.float32))
+        frame: List[Tuple[int, np.ndarray]] = []
+
+        def noisy(T):
+            if noise_std > 0:
+                return np.asarray(
+                    group.retract(T, rng.normal(0, noise_std, group.dof)),
+                    np.float32)
+            return np.asarray(T, np.float32)
+
+        frame.append((k - 1, noisy(gt_rel)))
+        # Loop closures to older spatially-near KFs (skip immediate chain).
+        d = np.linalg.norm(positions[:k - 1] - positions[k], axis=-1) \
+            if k >= 2 else np.zeros((0,))
+        for j in np.nonzero(d < loop_closure_range)[0]:
+            T = group.compose(group.inverse(world.gt_poses[k]),
+                              world.gt_poses[j])
+            frame.append((int(j), noisy(T)))
+        frames.append(frame)
+    return SlamDataset(world, frames, odometry,
+                       "RelativePoses2D" if world.group_name == "SE2"
+                       else "RelativePoses3D")
 
 
 # ---------------------------------------------------------------------------

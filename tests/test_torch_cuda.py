@@ -9,7 +9,7 @@ pytest settings).  This file imports no JAX.
 
 Tolerances: kernel vs plain at rtol 2e-4 / atol 2e-5 (the block tests'
 tolerance); CUDA vs CPU engine state at atol 1e-3 (the e2e parity
-tolerance of tests/test_torch_e2e_rb2d.py).
+tolerance of tests/test_torch_e2e_rb2d.py, _rb3d.py and _graphslam.py).
 """
 
 import numpy as np
@@ -57,11 +57,11 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         bl.spd_inverse_cuda(torch.eye(4, device=cuda).repeat(3, 1, 1))
 
 
-def _run(device, frames, odometry):
+def _run(device, frames, odometry, model="RangeBearing2D", sigma=0.005):
     import srba_tpu_torch as port
     from srba_tpu_torch.models.noise import NoiseIdentity
     eng = port.SrbaEngine(
-        "RangeBearing2D", noise=NoiseIdentity(0.005),
+        model, noise=NoiseIdentity(sigma),
         params=port.SrbaParams(max_tree_depth=3, max_optimize_depth=3),
         device=device)
     for k, frame in enumerate(frames):
@@ -88,5 +88,42 @@ def test_engine_on_cuda_matches_cpu_and_repeats_bitwise(cuda):
     np.testing.assert_allclose(sg.lm_state[:sg.num_lms],
                                sc.lm_state[:sc.num_lms], atol=1e-3)
     eg2 = _run("cuda", ds.frames, ds.odometry)
+    assert torch.equal(eg.device_master.pose, eg2.device_master.pose)
+    assert torch.equal(eg.device_master.lm, eg2.device_master.lm)
+
+
+def _wide_dataset(model):
+    from srba_tpu_torch.utils import datasets as tds
+    if model == "RangeBearing3D":
+        world = tds.make_world_loop_3d(num_kfs=20, radius=6.0,
+                                       num_landmarks=80, seed=2)
+        return tds.observe(world, model, noise_std=0.005, sensor_range=5.0,
+                           odo_noise_std=0.02, seed=2), 0.005
+    world = tds.make_world_loop_2d(num_kfs=25, radius=5.0, num_landmarks=1,
+                                   seed=4)
+    return tds.make_graph_slam_dataset(world, noise_std=0.005,
+                                       odo_noise_std=0.05,
+                                       loop_closure_range=3.0, seed=4), 0.005
+
+
+@pytest.mark.parametrize("model", ["RangeBearing3D", "RelativePoses2D"])
+def test_se3_and_graph_slam_engines_on_cuda_match_cpu(cuda, model):
+    """The 20-KF 3D range-bearing loop and the 25-KF graph-SLAM loop on the
+    card against the CPU, through the kernel at block size 3, and bitwise
+    equal masters on a rerun."""
+    from srba_tpu_torch.ops import block_linalg as bl
+    ds, sigma = _wide_dataset(model)
+    n0 = bl.spd_inverse_cuda.launches_by_d.get(3, 0)
+    eg = _run("cuda", ds.frames, ds.odometry, model, sigma)
+    assert bl.spd_inverse_cuda.launches_by_d.get(3, 0) > n0
+    assert eg.device_master.pose.is_cuda and eg.device_master.lm.is_cuda
+    ec = _run("cpu", ds.frames, ds.odometry, model, sigma)
+    sg, sc = eg.get_rba_state(), ec.get_rba_state()
+    assert (sg.num_edges, sg.num_lms) == (sc.num_edges, sc.num_lms)
+    np.testing.assert_allclose(sg.k2k_pose[:sg.num_edges],
+                               sc.k2k_pose[:sc.num_edges], atol=1e-3)
+    np.testing.assert_allclose(sg.lm_state[:sg.num_lms],
+                               sc.lm_state[:sc.num_lms], atol=1e-3)
+    eg2 = _run("cuda", ds.frames, ds.odometry, model, sigma)
     assert torch.equal(eg.device_master.pose, eg2.device_master.pose)
     assert torch.equal(eg.device_master.lm, eg2.device_master.lm)

@@ -76,10 +76,12 @@ def test_unported_names_raise(what):
         if what == "observation":
             SrbaEngine("StereoCamera", device="cpu")
         elif what == "group":
-            make_solver_impl(SolverConfig(**{**base, "pose_group": "SE3"}))
+            # Both of the JAX package's groups are ported: a name neither
+            # package has still raises by name through the lookup.
+            make_solver_impl(SolverConfig(**{**base, "pose_group": "Sim3"}))
         elif what == "landmark":
             make_solver_impl(SolverConfig(**{**base,
-                                             "lm_type": "Euclidean3D"}))
+                                             "lm_type": "InverseDepth"}))
         elif what == "solver":
             make_solver_impl(SolverConfig(
                 **{**base, "solver": "no_schur_dense_cholesky"}))
@@ -88,6 +90,22 @@ def test_unported_names_raise(what):
         else:
             SrbaEngine("RangeBearing2D", device_master=False, device="cpu")
     assert "not ported" in str(ei.value)
+
+
+def test_unported_models_and_options_raise():
+    """The camera models, sensor mounting poses and calibrations are not
+    ported: each raises by name."""
+    from srba_tpu_torch import SrbaEngine
+    from srba_tpu_torch.utils.datasets import make_world_loop_3d, observe
+
+    for name in ("MonocularCamera", "RGBDCamera"):
+        with pytest.raises(NotImplementedError, match=name):
+            SrbaEngine(name, device="cpu")
+    with pytest.raises(NotImplementedError, match="StereoCamera"):
+        observe(make_world_loop_3d(num_kfs=4, num_landmarks=5),
+                "StereoCamera")
+    with pytest.raises(NotImplementedError, match="calibrated"):
+        SrbaEngine("RangeBearing3D", calib=object(), device="cpu")
 
 
 def test_closure_targets_raise():

@@ -1,12 +1,15 @@
-"""SE(2) operations of the port against the JAX package, on the same seeded
-inputs: the torch group (values and hand-written forward-mode tangents) and
-the host numpy mirror.
+"""SE(2) and SE(3) operations of the port against the JAX package, on the
+same seeded inputs: the torch groups (values and hand-written forward-mode
+tangents, the latter against ``jax.jacfwd``) and the host numpy mirrors.
 
 Tolerances: values at atol 1e-5 (f32 trig of angles up to pi; the two
-frameworks' sin/cos/atan2 may differ in the last ulps); Jacobians at
+frameworks' sin/cos/atan2/sqrt may differ in the last ulps); Jacobians at
 atol 1e-4 (products of those values, and the port takes the derivative of
-``wrap_angle`` as exactly 1 where JAX's AD evaluates it in f32).  The numpy
-mirrors run the same numpy calls and must agree bit for bit.
+``wrap_angle`` as exactly 1 where JAX's AD evaluates it in f32).  The SE(3)
+tangents are checked at random poses, at the identity, and where an edge
+equals its prior (``quat_log`` then sees w == 1 exactly, the tie of its
+``clip``).  The numpy mirrors run the same numpy calls and must agree bit
+for bit.
 """
 
 import jax
@@ -131,3 +134,187 @@ def test_compose_path_matches_jax_mirror():
     np.testing.assert_array_equal(
         tnp_lie.compose_path(tnp_lie.NpSE2, edges, path),
         jnp_lie.compose_path(jnp_lie.NpSE2, edges, path))
+
+
+# -- SE(3) -------------------------------------------------------------------
+
+
+def _se3_poses(n, seed, scale=2.0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    return np.concatenate([rng.normal(0, scale, (n, 3)), q],
+                          axis=-1).astype(np.float32)
+
+
+def _se3_identities(n):
+    return np.tile(np.asarray([0, 0, 0, 1, 0, 0, 0], np.float32), (n, 1))
+
+
+def _se3_at(point, n, seed):
+    """Pairs (a, b) at a test point: random poses, the identity, or a
+    pose equal to its prior (b == a)."""
+    if point == "random":
+        return _se3_poses(n, seed), _se3_poses(n, seed + 100)
+    if point == "identity":
+        return _se3_identities(n), _se3_identities(n)
+    a = _se3_poses(n, seed)
+    return a, a.copy()
+
+
+@pytest.mark.parametrize("op", ["compose", "inverse", "apply", "pexp",
+                                "plog", "retract", "local_err", "normalize"])
+def test_se3_values_match_jax(op):
+    a, b = _se3_poses(64, 21), _se3_poses(64, 22)
+    d = np.random.default_rng(23).normal(0, 0.5, (64, 6)).astype(np.float32)
+    d[:8] *= 1e-5     # the exp Taylor branch
+    J, T = jlie.SE3, tlie.SE3
+    if op == "compose":
+        ref, out = J.compose(a, b), T.compose(_t(a), _t(b))
+    elif op == "inverse":
+        ref, out = J.inverse(a), T.inverse(_t(a))
+    elif op == "apply":
+        ref, out = J.apply(a, b[:, :3]), T.apply(_t(a), _t(b[:, :3]))
+    elif op == "pexp":
+        ref, out = J.pexp(d), T.pexp(_t(d))
+    elif op == "plog":
+        a[:8, 3:] *= -1.0     # the w < 0 hemisphere flip
+        ref, out = J.plog(a), T.plog(_t(a))
+    elif op == "retract":
+        ref, out = J.retract(a, d), T.retract(_t(a), _t(d))
+    elif op == "local_err":
+        ref, out = J.local_err(a, b), T.local_err(_t(a), _t(b))
+    else:
+        ref, out = J.normalize(3 * a), T.normalize(_t(3 * a))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_se3_identity_and_groups():
+    assert torch.equal(tlie.SE3.identity(),
+                       torch.from_numpy(np.array(jlie.SE3.identity())))
+    for name in ("SE2", "SE3"):
+        G, H = tlie.GROUPS[name], jlie.GROUPS[name]
+        assert (G.dim, G.dof, G.point_dim, G.name) == \
+            (H.dim, H.dof, H.point_dim, H.name)
+
+
+@pytest.mark.parametrize("point", ["random", "identity", "prior_eq_edge"])
+@pytest.mark.parametrize("op", ["compose_a", "compose_b", "inverse",
+                                "apply_a", "apply_pt", "retract", "pexp",
+                                "plog", "local_err"])
+def test_se3_tangents_match_jax_jacfwd(op, point):
+    a, b = _se3_at(point, 32, 24)
+    pt, zero = b[:, :3] + 0.5, np.zeros((32, 6), np.float32)
+    J, T = jlie.SE3, tlie.SE3
+    if op == "compose_a":
+        ref = _jac_jax(J.compose, 0, a, b)
+        _, tan = T.compose_jvp(_t(a), _t(b), _basis(7), None)
+    elif op == "compose_b":
+        ref = _jac_jax(J.compose, 1, a, b)
+        _, tan = T.compose_jvp(_t(a), _t(b), None, _basis(7))
+    elif op == "inverse":
+        ref = _jac_jax(J.inverse, 0, a)
+        _, tan = T.inverse_jvp(_t(a), _basis(7))
+    elif op == "apply_a":
+        ref = _jac_jax(J.apply, 0, a, pt)
+        _, tan = T.apply_jvp(_t(a), _t(pt), _basis(7), None)
+    elif op == "apply_pt":
+        ref = _jac_jax(J.apply, 1, a, pt)
+        _, tan = T.apply_jvp(_t(a), _t(pt), None, _basis(3))
+    elif op == "retract":     # at delta = 0, as the solver takes it
+        ref = _jac_jax(J.retract, 1, a, zero)
+        _, tan = T.retract_jvp(_t(a), _t(zero), _basis(6))
+    elif op == "pexp":        # away from 0: the exp's non-Taylor branch
+        d = (0.3 * b[:, :6] if point == "random" else zero)
+        ref = _jac_jax(J.pexp, 0, d)
+        _, tan = T.pexp_jvp(_t(d), _basis(6))
+    elif op == "plog":
+        # prior_eq_edge: plog of inv(a) o a, w == 1 exactly (checked).
+        c = (np.array(J.compose(J.inverse(a), b)) if point != "random"
+             else a)
+        if point == "prior_eq_edge":
+            assert (c[:, 3] == 1.0).any()
+        ref = _jac_jax(J.plog, 0, c)
+        _, tan = T.plog_jvp(_t(c), _basis(7))
+    else:
+        ref = _jac_jax(J.local_err, 1, a, b)
+        _, tan = T.local_err_jvp(_t(a), _t(b), _basis(7))
+    np.testing.assert_allclose(tan.numpy(), ref, atol=JAC_ATOL)
+
+
+@pytest.mark.parametrize("point", ["random", "prior_eq_edge"])
+def test_se3_prior_residual_jacobian_matches_jax(point):
+    """The edge-prior residual plog(inv(prior) o retract(edge, eps)) and
+    its Jacobian at eps = 0, the solver's prior factor."""
+    edge, prior = _se3_at(point, 32, 25)
+    J, T = jlie.SE3, tlie.SE3
+
+    def per_prior(eps, pr, pose):
+        return J.plog(J.compose(J.inverse(pr), J.retract(pose, eps)))
+
+    zero = np.zeros((32, 6), np.float32)
+    r_ref = np.asarray(jax.vmap(per_prior)(zero, prior, edge))
+    J_ref = _jac_jax(per_prior, 0, zero, prior, edge)
+    v, dv = T.retract_jvp(_t(edge), _t(zero), _basis(6))
+    c, dc = T.compose_jvp(T.inverse(_t(prior)), v, None, dv)
+    r, Jt = T.plog_jvp(c, dc)
+    np.testing.assert_allclose(r.numpy(), r_ref, atol=ATOL)
+    np.testing.assert_allclose(Jt.numpy(), J_ref, atol=JAC_ATOL)
+
+
+@pytest.mark.parametrize("group", ["SE2", "SE3"])
+def test_local_err_tangent_matches_jax_jacfwd(group):
+    if group == "SE2":
+        a, b = _poses(32, 26), _poses(32, 27)
+    else:
+        a, b = _se3_poses(32, 26), _se3_poses(32, 27)
+    J, T = jlie.GROUPS[group], tlie.GROUPS[group]
+    ref = _jac_jax(J.local_err, 1, a, b)
+    val, tan = T.local_err_jvp(_t(a), _t(b), _basis(T.dim))
+    assert torch.equal(val, T.local_err(_t(a), _t(b)))
+    np.testing.assert_allclose(tan.numpy(), ref, atol=JAC_ATOL)
+
+
+def test_se3_jvp_values_equal_plain_values():
+    a, b = _t(_se3_poses(16, 28)), _t(_se3_poses(16, 29))
+    d = _t(np.random.default_rng(30).normal(0, 0.3, (16, 6)).astype(
+        np.float32))
+    T = tlie.SE3
+    assert torch.equal(T.compose_jvp(a, b, _basis(7, 16), None)[0],
+                       T.compose(a, b))
+    assert torch.equal(T.inverse_jvp(a, _basis(7, 16))[0], T.inverse(a))
+    assert torch.equal(T.apply_jvp(a, b[:, :3], None, _basis(3, 16))[0],
+                       T.apply(a, b[:, :3]))
+    assert torch.equal(T.retract_jvp(a, d, _basis(6, 16))[0],
+                       T.retract(a, d))
+    assert torch.equal(T.plog_jvp(a, _basis(7, 16))[0], T.plog(a))
+
+
+@pytest.mark.parametrize("op", ["compose", "inverse", "apply", "retract",
+                                "pexp", "plog"])
+def test_np_se3_bit_identical_to_jax_mirror(op):
+    a, b = _se3_poses(64, 31), _se3_poses(64, 32)
+    d = 0.1 * b[:, :6]
+    J, T = jnp_lie.NpSE3, tnp_lie.NpSE3
+    if op == "compose":
+        ref, out = J.compose(a, b), T.compose(a, b)
+    elif op == "inverse":
+        ref, out = J.inverse(a), T.inverse(a)
+    elif op == "apply":
+        ref, out = J.apply(a, b[:, :3]), T.apply(a, b[:, :3])
+    elif op == "retract":
+        ref, out = J.retract(a, d), T.retract(a, d)
+    elif op == "pexp":
+        ref, out = J.pexp(d), T.pexp(d)
+    else:
+        ref, out = J.plog(a), T.plog(a)
+    np.testing.assert_array_equal(out, ref)
+    assert tnp_lie.np_group_for(tlie.SE3) is T
+
+
+def test_se3_compose_path_matches_jax_mirror():
+    edges = _se3_poses(6, 33)
+    path = [(0, 1), (3, -1), (5, 1), (2, -1)]
+    np.testing.assert_array_equal(
+        tnp_lie.compose_path(tnp_lie.NpSE3, edges, path),
+        jnp_lie.compose_path(jnp_lie.NpSE3, edges, path))

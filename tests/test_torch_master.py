@@ -2,8 +2,10 @@
 per-keyframe steps fed the same staged rows and window arrays (the JAX
 engine drives; each of its ``DeviceMaster.step`` calls is mirrored into the
 port's ``DeviceMaster``, which starts from the JAX masters), then the
-masters and infos compared; plus the master bookkeeping (lazy infos,
-capacity growth, prefetch-backed mirror sync).
+masters and infos compared — for SE(2) range-bearing, for SE(3)
+range-bearing (7-wide pose rows) and for graph-SLAM (pose landmarks); plus
+the master bookkeeping (lazy infos, capacity growth, prefetch-backed mirror
+sync).
 
 Tolerances: masters at atol 1e-4 (m / rad; one window solve's f32 rounding,
 the solver tests' delta tolerance); errors at rtol 1e-4; ``iters``, ``lam``
@@ -20,7 +22,9 @@ from srba_tpu import SrbaEngine as JEngine
 from srba_tpu import SrbaParams as JParams
 from srba_tpu.models.noise import NoiseIdentity
 from srba_tpu.solver import master as jmaster
-from srba_tpu.utils.datasets import make_world_loop_2d, observe
+from srba_tpu.utils.datasets import (make_graph_slam_dataset,
+                                     make_world_loop_2d, make_world_loop_3d,
+                                     observe)
 from srba_tpu_torch import convert
 from srba_tpu_torch.engine.device_master import DeviceMaster, LazyInfo
 from srba_tpu_torch.solver import master as tmaster
@@ -30,11 +34,23 @@ torch.set_num_threads(1)
 MASTER_ATOL, ERR_RTOL = 1e-4, 1e-4
 
 
-def _frames():
-    world = make_world_loop_2d(num_kfs=12, radius=6.0, num_landmarks=60,
-                               seed=3)
-    ds = observe(world, "RangeBearing2D", noise_std=0.005, sensor_range=5.0,
-                 odo_noise_std=0.03, seed=3)
+def _frames(model="RangeBearing2D"):
+    if model == "RangeBearing2D":
+        world = make_world_loop_2d(num_kfs=12, radius=6.0, num_landmarks=60,
+                                   seed=3)
+        ds = observe(world, model, noise_std=0.005, sensor_range=5.0,
+                     odo_noise_std=0.03, seed=3)
+    elif model == "RangeBearing3D":
+        world = make_world_loop_3d(num_kfs=12, radius=6.0, num_landmarks=80,
+                                   seed=3)
+        ds = observe(world, model, noise_std=0.005, sensor_range=5.0,
+                     odo_noise_std=0.03, seed=3)
+    else:
+        world = make_world_loop_2d(num_kfs=12, radius=3.0, num_landmarks=1,
+                                   seed=3, revolutions=2.0)
+        ds = make_graph_slam_dataset(world, noise_std=0.005,
+                                     loop_closure_range=1.5,
+                                     odo_noise_std=0.03, seed=3)
     return [([JObservation(lm_id=m, z=z) for m, z in frame],
              {k - 1: ds.odometry[k - 1]} if k else None)
             for k, frame in enumerate(ds.frames)]
@@ -45,9 +61,9 @@ def _live(dm_pose, dm_prior, dm_lm, n_e, n_l):
             np.asarray(dm_lm)[:n_l])
 
 
-def test_three_master_steps_match_jax():
-    frames = _frames()
-    jeng = JEngine("RangeBearing2D", noise=NoiseIdentity(0.005),
+def _three_mirrored_steps(model):
+    frames = _frames(model)
+    jeng = JEngine(model, noise=NoiseIdentity(0.005),
                    params=JParams(max_tree_depth=3, max_optimize_depth=3,
                                   rel_tol=0.3))
     for obs, init in frames[:9]:
@@ -80,6 +96,12 @@ def test_three_master_steps_match_jax():
         # Rows beyond the live ones stay untouched zeros in both.
         assert not pdm.pose[pdm.num_edges:].any()
     assert len(pairs) == 3
+    return jeng, pdm, pairs
+
+
+def test_three_master_steps_match_jax():
+    jeng, pdm, pairs = _three_mirrored_steps("RangeBearing2D")
+    jdm = jeng.device_master
     for jinfo, tinfo in pairs:
         assert isinstance(tinfo, LazyInfo)
         for k in ("err_init", "err_final"):
@@ -155,3 +177,52 @@ def test_grow_master_and_append_match_jax_semantics():
     np.testing.assert_array_equal(pose[8:].numpy().ravel(), rows[:24])
     np.testing.assert_array_equal(lm.numpy().ravel(), rows[56:])
 
+
+
+@pytest.mark.parametrize("model", ["RangeBearing3D", "RelativePoses2D"])
+def test_three_master_steps_match_jax_se3_and_graph_slam(model):
+    """The same mirrored steps at SE(3) width (7-wide pose rows, Euclidean3D)
+    and in graph-SLAM mode (fixed identity pose landmarks, closure edges)."""
+    jeng, pdm, pairs = _three_mirrored_steps(model)
+    assert pdm.pose_dim == jeng.group.dim and pdm.lm_dim == jeng.lm_type.dim
+    for jinfo, tinfo in pairs:
+        for k in ("err_init", "err_final"):
+            assert tinfo[k] == pytest.approx(jinfo[k], rel=ERR_RTOL), k
+        for k in ("iters", "lam", "num_obs"):
+            assert tinfo[k] == jinfo[k], (k, dict(tinfo), dict(jinfo))
+    if model == "RelativePoses2D":
+        # Pose landmarks are fixed: their rows never move.
+        assert torch.equal(pdm.lm[:pdm.num_lms],
+                           torch.zeros(pdm.num_lms, 3))
+
+
+def test_masked_scatter_adds_exact_zeros_at_se3_width():
+    """An SE(3) master step changes only the window's opt rows: fixed and
+    pad slots (global id 0, repeated) add exact zeros."""
+    frames = _frames("RangeBearing3D")
+    jeng = JEngine("RangeBearing3D", noise=NoiseIdentity(0.005),
+                   params=JParams(max_tree_depth=3, max_optimize_depth=2))
+    for obs, init in frames[:8]:
+        jeng.define_new_keyframe(obs, edge_init=init,
+                                 run_local_optimization=False)
+    from srba_tpu.solver.window import build_window
+    arrays, plan = build_window(jeng.state, jeng.graph, 7, 2, 3,
+                                gather_floats=False)
+    assert (arrays.edge_gids[len(plan.edge_ids):] == 0).all()
+    pdm = convert.device_master_from_jax(jeng.device_master)
+    pdm.flush_append()
+    before_pose, before_lm = pdm.pose.clone(), pdm.lm.clone()
+    pdm.step(convert.solver_config_from_jax(jeng._solver_cfg),
+             jeng._whitener, jeng._sensor_pose_inv, None,
+             arrays.edge_gids, arrays.edge_opt, arrays.lm_gids,
+             arrays.lm_opt, arrays.obs_lm, arrays.obs_valid,
+             arrays.path_edge, arrays.path_sign, arrays.obs_z)
+    moved_e = (pdm.pose != before_pose).any(dim=1).nonzero().flatten()
+    moved_l = (pdm.lm != before_lm).any(dim=1).nonzero().flatten()
+    opt_e = set(plan.edge_ids[plan.edge_opt].tolist())
+    opt_l = set(plan.lm_ids[plan.lm_opt].tolist())
+    assert moved_e.numel() > 0 and set(moved_e.tolist()) <= opt_e
+    assert moved_l.numel() > 0 and set(moved_l.tolist()) <= opt_l
+    q = pdm.pose[:pdm.num_edges, 3:]
+    assert torch.allclose(torch.linalg.vector_norm(q, dim=-1),
+                          torch.ones(pdm.num_edges), atol=1e-6)

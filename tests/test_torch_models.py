@@ -1,12 +1,13 @@
-"""Models of the port (RangeBearing2D, Euclidean2D, NoiseIdentity,
-SensorPoseNone, the pseudo-Huber kernel) against the JAX package on the same
-seeded inputs.
+"""Models of the port (RangeBearing2D/3D, Cartesian2D/3D, RelativePoses2D/3D,
+the four landmark types, NoiseIdentity, SensorPoseNone, the pseudo-Huber
+kernel) against the JAX package on the same seeded inputs.
 
 Tolerances: torch values at atol 1e-5 (f32 sqrt/atan2/trig of the two
-frameworks may differ in the last ulps at ranges up to ~10); the ``h``
-Jacobian at atol 1e-4; the numpy paths (dataset generation, landmark init)
-run the same numpy calls as the JAX package's numpy path and must agree bit
-for bit.
+frameworks may differ in the last ulps at ranges up to ~10); the ``h``,
+residual and retract Jacobians (``*_jvp`` tangents against ``jax.jacfwd``)
+at atol 1e-4; the numpy paths (dataset generation, landmark init) run the
+same numpy calls as the JAX package's numpy path and must agree bit for
+bit.
 """
 
 import jax
@@ -139,3 +140,140 @@ def test_robust_kernel_matches_jax(fn):
     # XLA may turn the division by b^2 into a multiply by its reciprocal,
     # and sqrt(1 + s/b^2) - 1 cancels: a few f32 ulps of the operands.
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+# -- RangeBearing3D, Cartesian2D/3D, RelativePoses2D/3D ----------------------
+
+POINT_MODELS = ["RangeBearing3D", "Cartesian2D", "Cartesian3D"]
+POSE_MODELS = ["RelativePoses2D", "RelativePoses3D"]
+
+
+def _points3(n=128, seed=40):
+    return np.random.default_rng(seed).uniform(-6, 6, (n, 3)).astype(
+        np.float32)
+
+
+def _z_rb3d(n=128, seed=41):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(0.2, 6, n), rng.uniform(-np.pi, np.pi, n),
+                     rng.uniform(-1.5, 1.5, n)], axis=-1).astype(np.float32)
+
+
+def _model_inputs(name, seed):
+    """(sensor-frame input, a measurement) for a model, seeded."""
+    if name == "RangeBearing3D":
+        return _points3(seed=seed), _z_rb3d(seed=seed + 1)
+    if name == "Cartesian2D":
+        return _points(seed=seed), _points(seed=seed + 1)
+    if name == "Cartesian3D":
+        return _points3(seed=seed), _points3(seed=seed + 1)
+    if name == "RelativePoses2D":
+        rng = np.random.default_rng(seed)
+        p = np.concatenate([rng.normal(0, 2, (128, 2)),
+                            rng.uniform(-3, 3, (128, 1))], -1)
+        return (p.astype(np.float32),
+                (p + rng.normal(0, 0.1, p.shape)).astype(np.float32))
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(128, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    p = np.concatenate([rng.normal(0, 2, (128, 3)), q], -1).astype(
+        np.float32)
+    return p, np.array(jlie.SE3.retract(
+        p, rng.normal(0, 0.1, (128, 6)).astype(np.float32)))
+
+
+@pytest.mark.parametrize("name", POINT_MODELS + POSE_MODELS)
+def test_model_metadata_and_values_match_jax(name):
+    Jm, Tm = jobs.OBSERVATION_MODELS[name], tobs.OBSERVATION_MODELS[name]
+    for attr in ("name", "obs_dim", "z_dim", "lm_dim", "has_inverse_model",
+                 "is_pose_landmark"):
+        assert getattr(Tm, attr) == getattr(Jm, attr), attr
+    assert Tm.pose_group.name == Jm.pose_group.name
+    x, z = _model_inputs(name, 42)
+    pred = Tm.h(torch.from_numpy(x))
+    np.testing.assert_allclose(pred.numpy(), np.asarray(Jm.h(jnp.asarray(x))),
+                               atol=ATOL)
+    if name == "RangeBearing3D":
+        pred = pred + torch.tensor([0.0, 3.0, 3.0])   # both angles wrap
+    ref = np.asarray(Jm.residual(jnp.asarray(pred.numpy()), jnp.asarray(z)))
+    out = Tm.residual(pred, torch.from_numpy(z)).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+    if name == "RangeBearing3D":
+        assert np.all(np.abs(out[:, 1:]) <= np.pi + 1e-6)
+    np.testing.assert_allclose(Tm.inverse(torch.from_numpy(z)).numpy(),
+                               np.asarray(Jm.inverse(jnp.asarray(z))),
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("name", POINT_MODELS)
+def test_point_model_numpy_paths_bit_identical(name):
+    Jm, Tm = jobs.OBSERVATION_MODELS[name], tobs.OBSERVATION_MODELS[name]
+    x, z = _model_inputs(name, 43)
+    h, inv = Tm.h(x), Tm.inverse(z)
+    assert isinstance(h, np.ndarray) and isinstance(inv, np.ndarray)
+    np.testing.assert_array_equal(h, Jm.h(x))
+    np.testing.assert_array_equal(inv, Jm.inverse(z))
+
+
+@pytest.mark.parametrize("name", POINT_MODELS + POSE_MODELS)
+def test_h_and_residual_jvp_match_jax_jacfwd(name):
+    """d residual(h(x), z) / dx by the port's ``h_jvp``/``residual_jvp``
+    against JAX's jacfwd of the same composition."""
+    Jm, Tm = jobs.OBSERVATION_MODELS[name], tobs.OBSERVATION_MODELS[name]
+    x, z = _model_inputs(name, 44)
+    x, z = x[:64], z[:64]
+    ref = np.asarray(jax.vmap(jax.jacfwd(
+        lambda a, b: Jm.residual(Jm.h(a), b)))(jnp.asarray(x),
+                                              jnp.asarray(z)))
+    n = x.shape[1]
+    tx = torch.from_numpy(x)
+    pred, dpred = Tm.h_jvp(tx, torch.eye(n).expand(64, n, n))
+    assert torch.equal(pred, Tm.h(tx))
+    r, tan = Tm.residual_jvp(pred, torch.from_numpy(z), dpred)
+    assert torch.equal(r, Tm.residual(pred, torch.from_numpy(z)))
+    np.testing.assert_allclose(tan.numpy(), ref, atol=JAC_ATOL)
+
+
+@pytest.mark.parametrize("name", ["RangeBearing3D", "Cartesian3D"])
+def test_se3_observation_chain_jacobian_matches_jax(name):
+    """h(apply(pose, lm)) on SE(3): the tangents the solver chains, with
+    respect to the pose and the landmark, against JAX's jacfwd."""
+    Jm, Tm = jobs.OBSERVATION_MODELS[name], tobs.OBSERVATION_MODELS[name]
+    _, pose = _model_inputs("RelativePoses3D", 45)
+    pose, lm = pose[:32], _points3(32, seed=46)
+
+    def f(p, l):
+        return Jm.h(jlie.SE3.apply(p, l))
+
+    ref_p = np.asarray(jax.vmap(jax.jacfwd(f, 0))(pose, lm))
+    ref_l = np.asarray(jax.vmap(jax.jacfwd(f, 1))(pose, lm))
+    basis = torch.eye(10).expand(32, 10, 10)
+    pt, dpt = tlie.SE3.apply_jvp(torch.from_numpy(pose), torch.from_numpy(lm),
+                                 basis[:, :7], basis[:, 7:])
+    _, tan = Tm.h_jvp(pt, dpt)
+    np.testing.assert_allclose(tan[..., :7].numpy(), ref_p, atol=JAC_ATOL)
+    np.testing.assert_allclose(tan[..., 7:].numpy(), ref_l, atol=JAC_ATOL)
+
+
+@pytest.mark.parametrize("name", ["Euclidean2D", "Euclidean3D",
+                                  "RelativePoses2D", "RelativePoses3D"])
+def test_landmark_types_match_jax(name):
+    Jl, Tl = jlm.LANDMARK_TYPES[name], tlm.LANDMARK_TYPES[name]
+    for attr in ("name", "dim", "dof", "is_pose"):
+        assert getattr(Tl, attr) == getattr(Jl, attr), attr
+    rng = np.random.default_rng(47)
+    if Tl.is_pose:
+        st = _model_inputs(name, 48)[0][:32]
+    else:
+        st = rng.uniform(-5, 5, (32, Tl.dim)).astype(np.float32)
+    d = rng.normal(0, 0.1, (32, Tl.dof)).astype(np.float32)
+    out = Tl.retract(torch.from_numpy(st), torch.from_numpy(d))
+    np.testing.assert_allclose(out.numpy(), np.asarray(Jl.retract(st, d)),
+                               atol=ATOL)
+    ref = np.asarray(jax.vmap(jax.jacfwd(Jl.retract, 1))(st, d))
+    val, tan = Tl.retract_jvp(torch.from_numpy(st), torch.from_numpy(d),
+                              torch.eye(Tl.dof).expand(32, Tl.dof, Tl.dof))
+    assert torch.equal(val, out)
+    np.testing.assert_allclose(tan.numpy(), ref, atol=JAC_ATOL)
+    np.testing.assert_array_equal(
+        tlm.identity_state(Tl).numpy(), np.asarray(jlm.identity_state(Jl)))

@@ -15,6 +15,14 @@ improvements per LM step are 0.78, 0.96, 0.91, 0.19, then f32 noise (0.77,
 uncapped solves use ``rel_tol=0.3``: the loop stops on the 4th step, far
 from a tie.  At the default 1e-6 it stops on a step whose improvement is
 summation noise, which the two frameworks round differently.
+
+The same comparisons run on an SE(3) RangeBearing3D window with edge priors
+(the engine's prior weights; improvements 0.988, 0.871, 0.0092, then f32
+noise, so ``rel_tol=0.05`` stops on the 3rd step) and on a graph-SLAM
+RelativePoses2D window whose paths cross closure edges (pose landmarks
+fixed, priors of weight 0 as the engine builds them; improvements 0.863,
+7.6e-5, then noise, so ``rel_tol=1e-3`` stops on the 2nd step), with the
+tolerances above.
 """
 
 import dataclasses
@@ -30,7 +38,9 @@ from srba_tpu import SrbaEngine as JEngine
 from srba_tpu import SrbaParams as JParams
 from srba_tpu.solver import lm as jlm
 from srba_tpu.solver.window import build_window
-from srba_tpu.utils.datasets import make_world_loop_2d, observe
+from srba_tpu.utils.datasets import (make_graph_slam_dataset,
+                                     make_world_loop_2d, make_world_loop_3d,
+                                     observe)
 from srba_tpu_torch import convert
 from srba_tpu_torch.solver import lm as tlm
 
@@ -61,7 +71,41 @@ def window():
     return eng._solver_cfg, arrays, eng._whitener
 
 
-def _jax_batch(arrays, whitener, prior_scale=None, iters_cap=None):
+@pytest.fixture(scope="module", params=["RangeBearing3D", "RelativePoses2D"])
+def wide_window(request):
+    """A depth-3 window of a 10-KF SE(3) range-bearing map, or of a 24-KF
+    graph-SLAM map with closure edges, whose edges still hold their
+    odometry / measurement seeds."""
+    from srba_tpu.models.noise import NoiseIdentity
+    model = request.param
+    if model == "RangeBearing3D":
+        world = make_world_loop_3d(num_kfs=20, radius=6.0, num_landmarks=80,
+                                   seed=2)
+        ds = observe(world, model, noise_std=0.005, sensor_range=5.0,
+                     odo_noise_std=0.02, seed=2)
+        nk, noise, rel_tol = 10, 0.005, 0.05
+    else:
+        world = make_world_loop_2d(num_kfs=30, radius=3.0, num_landmarks=1,
+                                   seed=5, revolutions=2.0)
+        ds = make_graph_slam_dataset(world, noise_std=0.002,
+                                     loop_closure_range=1.5,
+                                     odo_noise_std=0.01, seed=5)
+        nk, noise, rel_tol = 24, 0.002, 1e-3
+    eng = JEngine(model, noise=NoiseIdentity(noise),
+                  params=JParams(max_tree_depth=3, max_optimize_depth=3),
+                  device_master=False)
+    for k, frame in enumerate(ds.frames[:nk]):
+        eng.define_new_keyframe(
+            [JObservation(lm_id=m, z=z) for m, z in frame],
+            run_local_optimization=False,
+            edge_init={k - 1: ds.odometry[k - 1]} if k else None)
+    arrays, _ = build_window(eng.state, eng.graph, nk - 1, 3, 3)
+    cfg = dataclasses.replace(eng._solver_cfg, rel_tol=rel_tol)
+    return cfg, arrays, eng._whitener, eng._sensor_pose_inv
+
+
+def _jax_batch(arrays, whitener, prior_scale=None, iters_cap=None,
+               sensor_pose_inv=None):
     return jlm.WindowBatch(
         edge_pose=jnp.asarray(arrays.edge_pose),
         edge_opt=jnp.asarray(arrays.edge_opt),
@@ -72,7 +116,8 @@ def _jax_batch(arrays, whitener, prior_scale=None, iters_cap=None):
         path_sign=jnp.asarray(arrays.path_sign),
         obs_valid=jnp.asarray(arrays.obs_valid),
         whitener=jnp.asarray(whitener),
-        sensor_pose_inv=jnp.zeros(3, jnp.float32),
+        sensor_pose_inv=(jnp.zeros(3, jnp.float32) if sensor_pose_inv is None
+                         else jnp.asarray(sensor_pose_inv)),
         edge_prior=(None if prior_scale is None
                     else jnp.asarray(arrays.edge_prior)),
         edge_prior_w=(None if prior_scale is None
@@ -179,3 +224,70 @@ def test_make_lm_solver_moves_batch_to_its_device(window):
                                   device="cpu")
     e, _, info = solve(convert.window_batch_from_jax(jb))
     assert e.device.type == "cpu" and info["iters"].dtype == torch.int32
+
+
+def test_linearization_matches_jax_se3_and_graph_slam(wide_window):
+    """r and J of every observation and of the edge priors on the wide
+    windows, against the JAX package's vmap(jacfwd)."""
+    cfg, arrays, W, spinv = wide_window
+    jb = _jax_batch(arrays, W, prior_scale=1.0, sensor_pose_inv=spinv)
+    per_obs, eps_dim = jlm._make_per_obs_residual(cfg)
+    eps0 = jnp.zeros((eps_dim,), jnp.float32)
+
+    def f(eps, z, li, pe, ps):
+        return per_obs(eps, jb.edge_pose, jb.lm_state, z, li, pe, ps,
+                       jb.whitener, jb.sensor_pose_inv, None)
+
+    args = (jb.obs_z, jb.obs_lm, jb.path_edge, jb.path_sign)
+    r_ref = np.asarray(jax.vmap(lambda *a: f(eps0, *a))(*args))
+    J_ref = np.asarray(jax.vmap(lambda *a: jax.jacfwd(f)(eps0, *a))(*args))
+    tb = convert.window_batch_from_jax(jb)
+    linearize, prior_linearize = tlm.make_linearize(
+        convert.solver_config_from_jax(cfg))
+    r, J = linearize(tb.edge_pose, tb.lm_state, tb, jac=True)
+    assert J.shape == J_ref.shape
+    np.testing.assert_allclose(r.numpy(), r_ref, rtol=R_RTOL, atol=R_ATOL)
+    np.testing.assert_allclose(J.numpy(), J_ref, rtol=R_RTOL, atol=R_ATOL)
+    r_only, _ = linearize(tb.edge_pose, tb.lm_state, tb, jac=False)
+    assert torch.equal(r_only, r)
+
+    S = jlm.GROUPS[cfg.pose_group]
+
+    def per_prior(eps_e, prior, pose):
+        return S.plog(S.compose(S.inverse(prior), S.retract(pose, eps_e)))
+
+    z = jnp.zeros((jb.edge_pose.shape[0], S.dof), jnp.float32)
+    rp_ref = np.asarray(jax.vmap(per_prior)(z, jb.edge_prior, jb.edge_pose))
+    Jp_ref = np.asarray(jax.vmap(jax.jacfwd(per_prior))(
+        z, jb.edge_prior, jb.edge_pose))
+    rp, Jp = prior_linearize(tb.edge_pose, tb, jac=True)
+    np.testing.assert_allclose(rp.numpy(), rp_ref, atol=1e-5)
+    np.testing.assert_allclose(Jp.numpy(), Jp_ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("cap", [None, 1])
+def test_solve_matches_jax_se3_and_graph_slam(wide_window, cap):
+    cfg, arrays, W, spinv = wide_window
+    jb = _jax_batch(arrays, W, prior_scale=1.0, iters_cap=cap,
+                    sensor_pose_inv=spinv)
+    je, jl, jinfo = jlm.make_lm_solver(cfg)[0](jb)
+    te, tl, tinfo = tlm.make_solver_impl(convert.solver_config_from_jax(
+        cfg))[0](convert.window_batch_from_jax(jb))
+    e0, l0 = arrays.edge_pose, arrays.lm_state
+    np.testing.assert_allclose(te.numpy() - e0, np.asarray(je) - e0,
+                               atol=DELTA_ATOL)
+    np.testing.assert_allclose(tl.numpy() - l0, np.asarray(jl) - l0,
+                               atol=DELTA_ATOL)
+    jinfo = {k: float(v) for k, v in jinfo.items()}
+    tinfo = {k: float(v) for k, v in tinfo.items()}
+    for k in ("err_init", "err_final"):
+        assert tinfo[k] == pytest.approx(jinfo[k], rel=ERR_RTOL), k
+    for k in ("iters", "lam", "num_obs"):
+        assert tinfo[k] == jinfo[k], (k, tinfo, jinfo)
+    assert tinfo["err_final"] < tinfo["err_init"]
+    expect = {"RangeBearing3D": 3, "RelativePoses2D": 2}[cfg.obs_model]
+    assert tinfo["iters"] == (cap if cap is not None else expect)
+    if cfg.obs_model == "RelativePoses2D":
+        # Pose landmarks are fixed (lm_opt = 0): the state never moves.
+        assert not arrays.lm_opt.any()
+        assert torch.equal(tl, torch.from_numpy(l0))
