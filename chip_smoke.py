@@ -23,7 +23,21 @@ Phases (any failure raises and the script exits non-zero):
    parameters), each: warm-up on the first 10 keyframes, timed pass with
    KF/s, ATE bound and the kernel's launch count (block size 3), the
    profiler table, the first 20 keyframes on the CPU against the card, and
-   a rerun of those 20 keyframes on the card with bitwise-equal masters.
+   a rerun of those 20 keyframes on the card with bitwise-equal masters;
+9. the 20k-node SE(3) global pose-graph optimization of bench.py's
+   ``bench_pgo`` (its problem and config unchanged): warm and timed calls,
+   certification, the kernel on ``[32768, 6, 6]``, a profiled call's split
+   by scope, the kernel against its plain version on the preconditioner
+   stacks that call built, bitwise-equal reruns, the same solve on the CPU
+   against the card;
+10. config #4's global PGO after phase 8's timed pass: LM-PCG from the
+   incremental map (the kernel on ``[256, 3, 3]``, held against its plain
+   version on the stacks the solve built), then the terminal
+   ``optimize_global()``: certification, ATE and total squared error before
+   and after, and one more keyframe after the write-back;
+11. chordal initialization on the card: the four-revolution SE(3) yaw-drift
+   problem of tests/test_chordal.py, ATE bound, and the times of the SVD
+   projection and the matrix-to-quaternion step.
 
 Every phase prints its wall time.  The line before the last is the card as
 ``nvidia-smi`` names it; the JSON line before that lists the kernels; the
@@ -38,6 +52,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -49,6 +64,11 @@ KERNEL_RTOL, KERNEL_ATOL = 2e-4, 2e-5
 # tests/test_torch_e2e_rb2d.py (and _rb3d.py, _graphslam.py).
 CPU_AGREE_ATOL = 1e-3
 WARMUP_KFS, AGREE_KFS = 10, 20
+# Global PGO, CUDA vs CPU: the whole-solve parity tolerances of
+# tests/test_torch_global_pgo.py (nodes atol 1e-3, err_final rel 1e-3).
+PGO_NODE_ATOL, PGO_ERR_RTOL = 1e-3, 1e-3
+# tests/test_chordal.py: the four-revolution SE(3) problem ends within 0.1 m.
+CHORDAL_ATE_BOUND = 0.1
 
 
 def log(msg: str) -> None:
@@ -195,8 +215,59 @@ def run_config(cfg, device: str, num_kfs=None):
 
 
 def reset_launch_counts(bl) -> None:
-    bl.spd_inverse_cuda.launches = 0
-    bl.spd_inverse_cuda.launches_by_d = {}
+    bl.spd_inverse_cuda.launches_by_shape = {}
+
+
+def launches_by_d(bl) -> dict:
+    """The kernel's launches since the last reset, per block size d."""
+    out = {}
+    for (_, d), n in bl.spd_inverse_cuda.launches_by_shape.items():
+        out[d] = out.get(d, 0) + n
+    return out
+
+
+def shapes(by_shape) -> str:
+    return ", ".join(f"[{B},{d},{d}] x{n}" for (B, d), n in by_shape.items())
+
+
+@contextmanager
+def pgo_kernel_inputs():
+    """Records a copy of every stack the global PGO run inside hands
+    ``spd_inverse`` (which still runs the kernel and counts)."""
+    from srba_tpu_torch.solver import global_graphslam as pgo
+    seen = []
+    spd_inverse = pgo.spd_inverse
+
+    def recorder(m):
+        seen.append(m.clone())
+        return spd_inverse(m)
+
+    pgo.spd_inverse = recorder
+    try:
+        yield seen
+    finally:
+        pgo.spd_inverse = spd_inverse
+
+
+def check_kernel_on(tag: str, bl, stacks) -> None:
+    """The kernel against its plain version on stacks a solve built, at
+    (KERNEL_RTOL, KERNEL_ATOL).  (Padding nodes' blocks are ``1e-8 * I``,
+    so entries of the inverses reach 1e8.)"""
+    import torch
+    check(len(stacks) > 0, f"{tag}: the solve handed the kernel nothing")
+    err = scale = 0.0
+    for m in stacks:
+        out, ref = bl.spd_inverse_cuda(m), bl.spd_inverse_unrolled(m)
+        torch.cuda.synchronize()
+        e = float((out - ref).abs().max())
+        err, scale = max(err, e), max(scale, float(ref.abs().max()))
+        check(torch.allclose(out, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL),
+              f"{tag}: kernel != plain on a {list(m.shape)} stack the solve "
+              f"built: max|diff| {e:.3e}")
+    log(f"{tag}: kernel matches plain (rtol {KERNEL_RTOL}, atol "
+        f"{KERNEL_ATOL}) on the solve's {len(stacks)} preconditioner "
+        f"stack(s) {sorted({tuple(m.shape) for m in stacks})}, max|diff| "
+        f"{err:.3e} at max|inverse entry| {scale:.3e}")
 
 
 def masters_equal(a, b) -> bool:
@@ -226,14 +297,14 @@ def mean_device_step_ms(eng) -> float:
 def phase_config(num: int, name: str, card: str, bl):
     """Phases 7 and 8: warm-up, timed pass, CPU agreement and bitwise
     rerun of one config.  Returns the kernel's launches per block size in
-    the timed pass."""
+    the timed pass, the timed pass's engine and the config's data."""
     t_phase = time.perf_counter()
     cfg = make_config(name)
     _, warm, _ = run_config(cfg, "cuda", WARMUP_KFS)
     log(f"[{num}] {name} warm-up ({WARMUP_KFS} KFs): {warm:.3f} s")
     reset_launch_counts(bl)
     eng, dt, ate = run_config(cfg, "cuda")
-    launches = dict(bl.spd_inverse_cuda.launches_by_d)
+    launches = launches_by_d(bl)
     dm = eng.device_master
     check(dm.pose.is_cuda and dm.prior.is_cuda and dm.lm.is_cuda,
           f"{name} masters are not CUDA tensors")
@@ -261,7 +332,255 @@ def phase_config(num: int, name: str, card: str, bl):
     log(f"[{num}] {name} rerun of the first {AGREE_KFS} KFs on the card: "
         "pose, prior and landmark masters bitwise equal")
     log(f"[{num}] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches, eng, cfg
+
+
+def pgo20k_problem(K=20000):
+    """bench.py ``bench_pgo``'s problem (``bench.py:344-370``), unchanged:
+    an SE(3) ring of K poses with 0.02-sigma odometry edges, K/100 exact
+    chords, initial nodes perturbed by 0.3 per tangent component, seed 0."""
+    from srba_tpu_torch.ops.np_lie import NpSE3
+
+    rng = np.random.default_rng(0)
+    th = 2 * np.pi * np.arange(K) / K
+    gt = np.stack([NpSE3.pexp(np.asarray(
+        [30 * np.cos(t), 30 * np.sin(t), np.sin(3 * t), 0, 0,
+         t + np.pi / 2], np.float32)) for t in th])
+
+    def rel(i, j):
+        return NpSE3.compose(NpSE3.inverse(gt[i]), gt[j]).astype(np.float32)
+
+    edges = [{"from": k - 1, "to": k,
+              "rel_pose": NpSE3.retract(
+                  rel(k - 1, k), rng.normal(0, 0.02, 6).astype(np.float32))}
+             for k in range(1, K)]
+    for c in range(K // 100):
+        i = int(c * 100)
+        j = (i + K // 2) % K
+        edges.append({"from": i, "to": j, "rel_pose": rel(i, j)})
+    nodes = np.stack([NpSE3.retract(gt[k],
+                                    rng.normal(0, 0.3, 6).astype(np.float32))
+                      for k in range(K)])
+    nodes[0] = gt[0]
+    return {"group": "SE3", "nodes": nodes, "edges": edges}
+
+
+def phase_pgo20k(card: str, bl):
+    """Phase 9: bench.py's 20k-node SE(3) PGO on the card.  Returns the
+    kernel's launches per block size in the timed call."""
+    from srba_tpu_torch.solver.global_graphslam import (
+        PGOConfig, optimize_global_pose_graph)
+    from srba_tpu_torch.utils.profiler import Profiler
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    prob = pgo20k_problem()
+    K, E = len(prob["nodes"]), len(prob["edges"])
+    log(f"[9] bench_pgo problem: {K} nodes, {E} edges, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = PGOConfig(group="SE3", max_outer=30, cg_iters=100,
+                    abs_tol_per_edge=2e-5)
+    t0 = time.perf_counter()
+    G_warm, _ = optimize_global_pose_graph(prob, cfg, device="cuda")
+    log(f"[9] warm call: {time.perf_counter() - t0:.3f} s")
+    reset_launch_counts(bl)
+    torch_sync()
+    t0 = time.perf_counter()
+    G, info = optimize_global_pose_graph(prob, cfg, device="cuda")
+    torch_sync()
+    dt = time.perf_counter() - t0
+    launches = launches_by_d(bl)
+    by_shape = dict(bl.spd_inverse_cuda.launches_by_shape)
+    log(f"[9] timed call on {card}: {K} nodes / {E} edges SE3 in {dt:.3f} s, "
+        f"err {info['err_init']:.6e} -> {info['err_final']:.6e}, "
+        f"converged={info['converged']:.0f} iters={info['iters']:.0f} "
+        f"cg_iters_total={info['cg_iters_total']:.0f} "
+        f"escalations={info['escalations']:.0f}")
+    log(f"[9] spd_inverse kernel launches by [B, d]: {shapes(by_shape)}")
+    check(info["converged"] == 1.0, f"20k PGO not certified: {info}")
+    check(info["err_final"] < info["err_init"], f"20k PGO no descent: {info}")
+    check(set(by_shape) == {(32768, 6)} and by_shape[(32768, 6)] > 0,
+          f"20k PGO kernel shapes {by_shape}, expected [32768, 6, 6]")
+    check(np.array_equal(G, G_warm), "20k PGO nodes differ between runs")
+    log("[9] warm and timed calls: nodes bitwise equal")
+    prof = Profiler()
+    with pgo_kernel_inputs() as stacks:
+        t0 = time.perf_counter()
+        G_p, info_p = optimize_global_pose_graph(prob, cfg, device="cuda",
+                                                 profiler=prof)
+        dt_p = time.perf_counter() - t0
+    log(f"[9] profiled call (each scope waits for the device): "
+        f"{dt_p:.3f} s; host syncs per solve "
+        f"{prof.counters['pgo_host_syncs'] / prof.counters['pgo_solves']:.0f}"
+        f", incidence width {prof.counters['pgo_incidence_width']}")
+    log(f"[9] {prof.report()}")
+    check(np.array_equal(G_p, G), "20k PGO nodes differ when profiled")
+    check_kernel_on("[9]", bl, stacks)
+    t0 = time.perf_counter()
+    G_c, info_c = optimize_global_pose_graph(prob, cfg, device="cpu")
+    d_node = float(np.abs(G_c - G).max())
+    d_err = abs(info_c["err_final"] - info["err_final"]) / info["err_final"]
+    log(f"[9] same solve on the CPU ({time.perf_counter() - t0:.1f} s): "
+        f"iters {info_c['iters']:.0f}, cg_iters_total "
+        f"{info_c['cg_iters_total']:.0f}; max|node diff| {d_node:.3e} "
+        f"(atol {PGO_NODE_ATOL}), err_final rel diff {d_err:.3e} "
+        f"(rtol {PGO_ERR_RTOL})")
+    check(d_node < PGO_NODE_ATOL and d_err < PGO_ERR_RTOL,
+          "20k PGO on CUDA disagrees with the CPU")
+    log(f"[9] phase wall time {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def phase_config4_pgo(eng, cfg4, card: str, bl):
+    """Phase 10: config #4's global PGO on the timed pass's engine.  The
+    engine's default solve (chordal init, pseudo-Huber) certifies config
+    #4's map at its chordal initialization, with no LM iteration and so no
+    kernel launch (the JAX package takes the same decision), so the phase
+    first solves LM-PCG from the incremental map (chordal off, no
+    write-back) and then makes the terminal ``optimize_global()`` with its
+    write-back.  Returns the kernel's launches per block size in both
+    calls."""
+    from srba_tpu_torch import Observation
+    from srba_tpu_torch.solver.global_graphslam import PGOConfig
+    from srba_tpu_torch.utils.datasets import ate_rmse
+    from srba_tpu_torch.utils.profiler import Profiler
+
+    t_phase = time.perf_counter()
+    world, ds, _, _, d = cfg4
+
+    def ate(G=None):
+        if G is None:
+            G, _ = eng.create_complete_spanning_tree(0)
+        return float(ate_rmse(np.asarray(G)[:, :d],
+                              world.gt_poses[:len(G), :d]))
+
+    ate_before, err_before = ate(), eng.eval_overall_squared_error()
+    reset_launch_counts(bl)
+    prof = Profiler()
+    torch_sync()
+    with pgo_kernel_inputs() as stacks:
+        t0 = time.perf_counter()
+        G_lm, info_lm = eng.optimize_global(
+            PGOConfig(group="SE2", robust_delta=0.1), write_back=False,
+            profiler=prof)
+        torch_sync()
+        dt_lm = time.perf_counter() - t0
+    by_shape_lm = dict(bl.spd_inverse_cuda.launches_by_shape)
+    log(f"[10] config4 LM-PCG from the incremental map (chordal off, no "
+        f"write-back, profiled: each scope waits for the device) on {card}: "
+        f"{dt_lm:.3f} s, {eng.num_keyframes} nodes / {eng.state.num_edges} "
+        f"edges, incidence width {prof.counters['pgo_incidence_width']}, "
+        f"host syncs {prof.counters['pgo_host_syncs']}; ATE "
+        f"{ate_before:.6f} -> {ate(G_lm):.6f} m; info {info_lm}; "
+        f"spd_inverse kernel launches by [B, d]: {shapes(by_shape_lm)}")
+    check(info_lm["converged"] == 1.0 and info_lm["iters"] >= 1,
+          f"config4 LM-PCG not certified after an LM step: {info_lm}")
+    check(by_shape_lm.get((256, 3), 0) == info_lm["iters"],
+          f"config4 PGO kernel shapes {by_shape_lm}, expected [256, 3, 3] "
+          "once per LM iteration")
+    torch_sync()
+    t0 = time.perf_counter()
+    _, info = eng.optimize_global()
+    torch_sync()
+    dt = time.perf_counter() - t0
+    launches = launches_by_d(bl)
+    ate_after, err_after = ate(), eng.eval_overall_squared_error()
+    log(f"[10] config4 optimize_global() on {card}: {dt:.3f} s; info {info}")
+    log(f"[10] ATE {ate_before:.6f} -> {ate_after:.6f} m (bound "
+        f"{ATE_BOUND['config4']}), eval_overall_squared_error "
+        f"{err_before:.6e} -> {err_after:.6e}; spd_inverse kernel launches "
+        f"in both calls by [B, d]: "
+        f"{shapes(bl.spd_inverse_cuda.launches_by_shape)}")
+    check(info["converged"] == 1.0, f"config4 PGO not certified: {info}")
+    check(ate_after <= ATE_BOUND["config4"], f"config4 PGO ATE {ate_after}")
+    check(err_after <= 1.05 * err_before + 1e-6,
+          f"config4 PGO made the map worse: {err_before} -> {err_after}")
+    n = eng.num_keyframes
+    eng.define_new_keyframe([Observation(lm_id=n - 1, z=ds.odometry[-1])],
+                            edge_init={n - 1: ds.odometry[-1]})
+    eng.fence()
+    check(eng.num_keyframes == n + 1 and bool(np.isfinite(
+        eng.eval_overall_squared_error())),
+        "config4: incremental step after the write-back failed")
+    log(f"[10] one more keyframe after the write-back: {eng.num_keyframes} "
+        "KFs, finite error")
+    check_kernel_on("[10]", bl, stacks)
+    log(f"[10] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def chordal_problem(K=120, radius=10.0, yaw_revolutions=4.0, seed=0):
+    """tests/test_chordal.py's four-revolution SE(3) problem
+    (``TestChordalSE3.test_four_revolutions_yaw_drift_converges``): a
+    circle of K poses, 0.005-sigma consecutive edges, exact closures every
+    10 poses plus (0, K-1), nodes dead-reckoned with a yaw bias that adds
+    up to ``yaw_revolutions`` turns."""
+    from srba_tpu_torch.ops.np_lie import NpSE3
+
+    th = 2 * np.pi * np.arange(K) / K
+    gt = np.stack([NpSE3.pexp(np.asarray(
+        [radius * np.cos(t), radius * np.sin(t), 0, 0, 0, t + np.pi / 2],
+        np.float32)) for t in th])
+    rng = np.random.default_rng(seed)
+
+    def rel(i, j):
+        return NpSE3.compose(NpSE3.inverse(gt[i]), gt[j]).astype(np.float32)
+
+    edges = [{"from": k - 1, "to": k, "rel_pose": NpSE3.retract(
+        rel(k - 1, k), (rng.normal(0, 0.005, 6)).astype(np.float32))}
+        for k in range(1, K)]
+    for i, j in [(i, (i + K // 2) % K) for i in range(0, K, 10)] \
+            + [(0, K - 1)]:
+        edges.append({"from": i, "to": j, "rel_pose": rel(i, j)})
+    bias = np.zeros(6, np.float32)
+    bias[-1] = 2 * np.pi * yaw_revolutions / (K - 1)
+    nodes = np.zeros_like(gt)
+    nodes[0] = gt[0]
+    for k in range(1, K):
+        nodes[k] = NpSE3.compose(nodes[k - 1], NpSE3.retract(
+            edges[k - 1]["rel_pose"], bias))
+    return {"group": "SE3", "nodes": nodes.astype(np.float32),
+            "edges": edges}, gt
+
+
+def phase_chordal(card: str):
+    """Phase 11: SE(3) chordal initialization on the card."""
+    import torch
+
+    from srba_tpu_torch.solver.chordal import _matrix_to_quat, _project_so
+    from srba_tpu_torch.solver.global_graphslam import (
+        PGOConfig, optimize_global_pose_graph)
+
+    t_phase = time.perf_counter()
+    prob, gt = chordal_problem()
+    ate0 = float(np.sqrt(np.mean(np.sum(
+        (prob["nodes"][:, :3] - gt[:, :3]) ** 2, -1))))
+    cfg = PGOConfig(group="SE3", max_outer=40, cg_iters=100,
+                    chordal_init=True, chordal_cg_iters=400)
+    t0 = time.perf_counter()
+    G, info = optimize_global_pose_graph(prob, cfg, device="cuda")
+    dt = time.perf_counter() - t0
+    ate = float(np.sqrt(np.mean(np.sum((G[:, :3] - gt[:, :3]) ** 2, -1))))
+    log(f"[11] SE3 chordal + LM-PCG, {len(G)} nodes, 4 revolutions of yaw "
+        f"drift: ATE {ate0:.3f} -> {ate:.6f} m (bound {CHORDAL_ATE_BOUND}) "
+        f"in {dt:.3f} s; info {info}")
+    check(ate < CHORDAL_ATE_BOUND, f"SE3 chordal ATE {ate}")
+    rng = np.random.default_rng(1)
+    for B in (256, 32768):
+        M = torch.as_tensor(rng.normal(size=(B, 3, 3)).astype(np.float32),
+                            device="cuda")
+        R, _ = _project_so(M, 3)
+        svd_ms = cuda_time_ms(lambda m: _project_so(m, 3), M, iters=20)
+        q_ms = cuda_time_ms(_matrix_to_quat, R, iters=20)
+        log(f"[11] [{B},3,3] on {card}: SVD projection {svd_ms * 1e3:.2f} "
+            f"us, matrix-to-quaternion {q_ms * 1e3:.2f} us (median of 5 x "
+            "20 calls)")
+    log(f"[11] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+def torch_sync() -> None:
+    import torch
+    torch.cuda.synchronize()
 
 
 def main() -> int:
@@ -306,9 +625,11 @@ def main() -> int:
     # -- 3. kernel vs plain version on the card ------------------------------
     t_phase = time.perf_counter()
     max_err = 0.0
-    shapes = [(B, d) for d in (1, 2, 3, 6)
-              for B in (1, 7, 300, 64, 4096, 131072)]
-    for B, d in shapes:
+    # The B of the paths: 64 (window buckets), 256 (config #4's PGO), 32768
+    # (pgo20k); others test odd and large stacks.
+    kernel_shapes = [(B, d) for d in (1, 2, 3, 6)
+                     for B in (1, 7, 300, 64, 256, 4096, 32768, 131072)]
+    for B, d in kernel_shapes:
         m = torch.as_tensor(spd_stack(B, d), device="cuda")
         out = bl.spd_inverse_cuda(m)
         ref = bl.spd_inverse_unrolled(m)
@@ -323,11 +644,12 @@ def main() -> int:
     max_err = max(max_err, err)
     check(err < 1e-3, f"kernel != plain at [8192,6,6]: {err:.3e}")
     log(f"[3] kernel matches plain (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}) "
-        f"at {len(shapes)} shapes, d in {{1,2,3,6}}; "
+        f"at {len(kernel_shapes)} shapes, d in {{1,2,3,6}}; "
         f"[8192,6,6] max|diff| {err:.3e} (< 1e-3); "
         f"max|diff| overall {max_err:.3e}")
     times = {}
-    for B, d in ((64, 2), (64, 3), (256, 3), (4096, 2), (131072, 6)):
+    for B, d in ((64, 2), (64, 3), (256, 3), (4096, 2), (32768, 6),
+                 (131072, 6)):
         m = torch.as_tensor(spd_stack(B, d), device="cuda")
         k_ms = cuda_time_ms(bl.spd_inverse_cuda, m)
         p_ms = cuda_time_ms(bl.spd_inverse_unrolled, m)
@@ -344,7 +666,7 @@ def main() -> int:
                        lm_type="Euclidean2D", max_depth=4, max_iters=6,
                        rel_tol=0.0)
     solve, _ = make_lm_solver(cfg, device="cuda")
-    n0 = bl.spd_inverse_cuda.launches
+    reset_launch_counts(bl)
     t0 = time.perf_counter()
     _, _, info = solve(batch)
     torch.cuda.synchronize()
@@ -357,7 +679,7 @@ def main() -> int:
     check(bool(np.isfinite(info["err_final"]))
           and info["err_final"] < info["err_init"],
           f"large window did not descend: {info}")
-    check(bl.spd_inverse_cuda.launches > n0,
+    check(sum(launches_by_d(bl).values()) > 0,
           "large window never launched the spd_inverse kernel")
     log(f"[4] large window E=256 L=4096 N=16384 D=4, 6 LM iterations: "
         f"err {info['err_init']:.6e} -> {info['err_final']:.6e}, "
@@ -372,7 +694,7 @@ def main() -> int:
     log(f"[5] config #1 warm-up ({WARMUP_KFS} KFs): {warm:.3f} s")
     reset_launch_counts(bl)
     eng, dt, ate = run_config(cfg1, "cuda")
-    launches = {"config1": dict(bl.spd_inverse_cuda.launches_by_d)}
+    launches = {"config1": launches_by_d(bl)}
     dm = eng.device_master
     check(dm.pose.is_cuda and dm.prior.is_cuda and dm.lm.is_cuda,
           "config #1 masters are not CUDA tensors")
@@ -382,7 +704,7 @@ def main() -> int:
     log(f"[5] config #1 timed pass on {card}: {kfs} KFs in {dt:.3f} s = "
         f"{kfs / dt:.2f} KF/s, ATE {ate:.6f} m (bound "
         f"{ATE_BOUND['config1']}), spd_inverse kernel launches "
-        f"{bl.spd_inverse_cuda.launches} by block size "
+        f"{sum(launches['config1'].values())} by block size "
         f"{launches['config1']}")
     check(ate <= ATE_BOUND["config1"], f"config #1 ATE {ate} > bound")
     log(f"[5] {eng.profiler.report()}")
@@ -407,8 +729,16 @@ def main() -> int:
     check_flags()
 
     # -- 7. config #2, 8. config #4 -------------------------------------------
-    launches["config2"] = phase_config(7, "config2", card, bl)
-    launches["config4"] = phase_config(8, "config4", card, bl)
+    launches["config2"], _, _ = phase_config(7, "config2", card, bl)
+    launches["config4"], eng4, cfg4 = phase_config(8, "config4", card, bl)
+    check_flags()
+
+    # -- 9. 20k-node SE(3) PGO, 10. config #4's optimize_global, 11. chordal
+    launches["pgo20k"] = phase_pgo20k(card, bl)
+    check_flags()
+    launches["config4_pgo"] = phase_config4_pgo(eng4, cfg4, card, bl)
+    check_flags()
+    phase_chordal(card)
     check_flags()
 
     k_ms, p_ms = times[(64, 2)]

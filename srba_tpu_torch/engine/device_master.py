@@ -326,3 +326,37 @@ class DeviceMaster:
         self.sync_stats["miss_s"] += time.perf_counter() - t0
         self.mirror_seq = self.step_seq
         self._prefetch = None
+
+    def upload_from_host(self, k2k_pose: np.ndarray, lm_state: np.ndarray,
+                         num_edges: int, num_lms: int,
+                         k2k_prior: np.ndarray = None,
+                         k2k_prior_w: np.ndarray = None) -> None:
+        """Replace the device masters wholesale (the global PGO's
+        write-back).  Priors default to the uploaded poses with weight 0 (no
+        factors).  Staging is cleared, a pending prefetch (its pinned buffer
+        and event) is dropped since it holds pre-upload state, and the host
+        mirror is marked current."""
+        self._pend_edges.clear()
+        self._pend_priors.clear()
+        self._pend_lms.clear()
+        self.num_edges = num_edges
+        self.num_lms = num_lms
+        ecap = max(self.INIT_EDGE_CAP,
+                   _bucket_pow2(num_edges + self.PAD_E_MIN, self.INIT_EDGE_CAP))
+        lcap = max(self.INIT_LM_CAP,
+                   _bucket_pow2(num_lms + self.PAD_L_MIN, self.INIT_LM_CAP))
+        pose = np.zeros((ecap, self.pose_dim), np.float32)
+        pose[:num_edges] = k2k_pose[:num_edges]
+        prior = np.zeros((ecap, self.pose_dim + 1), np.float32)
+        prior[:num_edges, : self.pose_dim] = (
+            k2k_prior[:num_edges] if k2k_prior is not None
+            else k2k_pose[:num_edges])
+        if k2k_prior_w is not None:
+            prior[:num_edges, self.pose_dim] = k2k_prior_w[:num_edges]
+        lm = np.zeros((lcap, self.lm_dim), np.float32)
+        lm[:num_lms] = lm_state[:num_lms]
+        self.pose = torch.as_tensor(pose, device=self.device)
+        self.prior = torch.as_tensor(prior, device=self.device)
+        self.lm = torch.as_tensor(lm, device=self.device)
+        self._prefetch = None
+        self.dirty = False

@@ -7,10 +7,12 @@ observations of earlier keyframes as fixed pose landmarks, with a kf2kf
 edge to every observed keyframe beyond the tree depth), chain edge-creation
 policies and odometry/dead-reckoned edge seeds — what configs #1 (2D
 range-bearing SE(2)), #2 (3D range-bearing SE(3)) and #4 (relative-pose
-graph-SLAM) run.  ECP loop-closure edges, calibrated camera models, sensor
-mounting poses, monocular deferred triangulation, the host-window and mesh
-paths, ``refine_map`` and ``optimize_global`` are not ported yet and raise
-by name.
+graph-SLAM) run — and the global-map entry points ``optimize_global`` (the
+global pose-graph optimization over all kf2kf edges, written back into the
+device masters) and ``bfs_visitor``.  ECP loop-closure edges, calibrated
+camera models, sensor mounting poses, monocular deferred triangulation and
+the host-window and mesh paths are not ported yet and raise by name;
+``refine_map`` is not ported yet.
 
 Per keyframe the host does the integer work (allocation, edge-creation
 policy, spanning-tree paths, window selection) and the device runs ONE step
@@ -20,6 +22,7 @@ read back until a caller asks for state.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -61,6 +64,10 @@ class SrbaParams:
     # solve (scaled down by hop count for dead-reckoned seeds).  None
     # disables the priors.
     edge_prior_sigma: Optional[float] = 0.05
+    # Reference sigma of closure-edge information in the global PGO export
+    # (io/export.py): a closure fit with this sigma keeps weight 1, others
+    # scale quadratically (clipped).
+    closure_prior_sigma: float = 0.25
     # Staleness budget (optimization steps) of the host mirror behind the
     # edge-seed cache, and the async prefetch cadence (every max_age/2).
     closure_mirror_max_age: int = 16
@@ -537,6 +544,108 @@ class SrbaEngine:
                 G[nodes] = self.np_group.compose(G[ps],
                                                  steps).astype(np.float32)
         return G, dist
+
+    def bfs_visitor(self, root: int, max_depth: int, kf_visitor=None,
+                    k2k_visitor=None, lm_visitor=None, k2f_visitor=None):
+        """Generic BFS traversal with callbacks — the four-visitor analog of
+        the reference's ``bfs_visitor<KF_VISITOR, FEAT_VISITOR, K2K_VISITOR,
+        K2F_VISITOR>``:
+
+        * ``kf_visitor(kf_id, depth)`` per reached keyframe;
+        * ``k2k_visitor(edge_id, parent_kf, child_kf)`` per tree edge;
+        * ``lm_visitor(lm_id, base_kf, depth)`` per landmark whose base KF
+          is reached (once, at the base's depth — the FEAT visitor);
+        * ``k2f_visitor(obs_id, kf_id, lm_id)`` per observation made from a
+          reached keyframe.
+        """
+        dist, parent = self.graph.bfs_tree(root, max_depth)
+        order = sorted(dist.keys(), key=lambda n: (dist[n], n))
+        by_base: Dict[int, List[int]] = {}
+        if lm_visitor is not None:
+            for lm in range(self.state.num_lms):
+                by_base.setdefault(int(self.state.lm_base[lm]),
+                                   []).append(lm)
+        for n in order:
+            if kf_visitor is not None:
+                kf_visitor(n, dist[n])
+            if n != root and k2k_visitor is not None:
+                p, eid = parent[n]
+                k2k_visitor(eid, p, n)
+            if k2f_visitor is not None:
+                for o in self.state.kf_obs[n]:
+                    k2f_visitor(o, n, int(self.state.obs_lm[o]))
+            if lm_visitor is not None:
+                for lm in by_base.get(n, ()):
+                    lm_visitor(lm, n, dist[n])
+        return dist
+
+    def optimize_global(self, cfg=None, write_back: bool = True, mesh=None,
+                        periodic: bool = False, use_edge_info: bool = False,
+                        profiler=None):
+        """Global pose-graph optimization over ALL kf2kf edges (the JAX
+        package's ``optimize_global``): the problem of
+        :func:`~srba_tpu_torch.io.export.get_global_graphslam_problem`
+        solved by the matrix-free LM-PCG of
+        :mod:`srba_tpu_torch.solver.global_graphslam` on the engine's
+        device.
+
+        The default configuration is the basin-robust one: chordal
+        initialization and a pseudo-Huber edge loss (``robust_delta`` 0.1).
+        ``periodic`` marks a mid-run refinement: the LM damping warm-starts
+        from the previous periodic solve's final lambda, and the default
+        configuration certifies at ``rel_tol`` 1e-3 (diminishing returns).
+        A caller's own ``cfg`` keeps its ``rel_tol`` — the JAX package
+        overwrites it with 1e-3 in periodic mode.  ``use_edge_info`` feeds
+        the closure fits' anisotropic information shapes into the solve.
+        ``profiler`` (a :class:`Profiler`, none by default) takes the
+        solve's scopes and counters; its scopes wait for the device.
+        ``mesh`` (the edge-sharded solve) is not ported yet.
+
+        Returns ``(G_opt [K, pose_dim], info)``.  With ``write_back`` the
+        relative edge poses are re-derived from the optimized globals
+        (``T_a<-b = inv(G_a) ∘ G_b``) and uploaded into the device masters,
+        so incremental operation continues from the globally consistent
+        map."""
+        from srba_tpu_torch.io.export import get_global_graphslam_problem
+        from srba_tpu_torch.solver.global_graphslam import (
+            PGOConfig, optimize_global_pose_graph)
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "optimize_global(mesh=...) (the edge-sharded PGO) is not "
+                "ported to srba_tpu_torch yet")
+        # No ported path holds a pending weak closure to flush first: that
+        # arrives with the closure bootstrap (ROADMAP queue 1, config #3).
+        self.device_master.flush_append()
+        prob = get_global_graphslam_problem(
+            self, with_edge_info=use_edge_info)  # syncs internally
+        lam0 = None
+        if cfg is None:
+            cfg = PGOConfig(group=self.group.name, chordal_init=True,
+                            robust_delta=0.1)
+            if periodic:
+                cfg = dataclasses.replace(cfg, rel_tol=1e-3)
+        if periodic:
+            lam0 = getattr(self, "_pgo_warm_lam", None)
+        G_opt, info = optimize_global_pose_graph(
+            prob, cfg, lam0=lam0, device=self.device, profiler=profiler)
+        if periodic:
+            self._pgo_warm_lam = float(info.get("lam", cfg.lam0))
+        if write_back and self.state.num_edges:
+            a = self.state.k2k_from[: self.state.num_edges]
+            b = self.state.k2k_to[: self.state.num_edges]
+            self.state.k2k_pose[: self.state.num_edges] = \
+                self.np_group.compose(self.np_group.inverse(G_opt[a]),
+                                      G_opt[b]).astype(np.float32)
+            self.device_master.upload_from_host(
+                self.state.k2k_pose, self.state.lm_state,
+                self.state.num_edges, self.state.num_lms,
+                k2k_prior=self.state.k2k_prior,
+                k2k_prior_w=self.state.k2k_prior_w)
+            self._G_dr = [np.asarray(G_opt[k], np.float32)
+                          for k in range(self.state.num_kfs)]
+            self._seed_cache = None   # poses changed wholesale
+        return G_opt, info
 
     def eval_overall_squared_error(self) -> float:
         """Total whitened squared error over ALL observations, using global

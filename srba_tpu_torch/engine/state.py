@@ -67,6 +67,18 @@ class ProblemState:
     k2k_prior: Optional[np.ndarray] = None
     k2k_prior_w: np.ndarray = field(
         default_factory=lambda: np.zeros(0, np.float32))
+    # Measured creation-time pose sigma of the edge (closure-bootstrap fit
+    # covariance); 0 = unmeasured (odometry / dead-reckoned seeds).  Host
+    # only — consumed by the global graph-SLAM export's per-edge
+    # information weights (io/export.py), never shipped to device.
+    k2k_sigma: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, np.float32))
+    # Full creation-time fit information (the closure bootstrap's JtJ,
+    # [dof, dof] per edge; all-zero = unmeasured).  Host only — the global
+    # graph-SLAM export eig-normalizes it into per-edge anisotropic
+    # information shapes (io/export.py).  No ported path measures a closure
+    # fit yet, so both stay 0 until the closure bootstrap is ported.
+    k2k_info: Optional[np.ndarray] = None
 
     # landmarks
     lm_base: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int32))
@@ -82,11 +94,20 @@ class ProblemState:
     lm_obs: List[List[int]] = field(default_factory=list)
     kf_obs: List[List[int]] = field(default_factory=list)
 
+    @property
+    def pose_dof(self) -> int:
+        """Tangent dof of the pose group (SE2: dim 3/dof 3; SE3 quaternion:
+        dim 7/dof 6)."""
+        return 3 if self.pose_dim == 3 else 6
+
     def __post_init__(self):
         if self.k2k_pose is None:
             self.k2k_pose = np.zeros((0, self.pose_dim), np.float32)
         if self.k2k_prior is None:
             self.k2k_prior = np.zeros((0, self.pose_dim), np.float32)
+        if self.k2k_info is None:
+            self.k2k_info = np.zeros((0, self.pose_dof, self.pose_dof),
+                                     np.float32)
         if self.lm_state is None:
             self.lm_state = np.zeros((0, self.lm_dim), np.float32)
         if self.obs_z is None:
@@ -101,18 +122,23 @@ class ProblemState:
         return kf
 
     def add_edge(self, from_kf: int, to_kf: int, pose: np.ndarray,
-                 prior_w: float = 0.0) -> int:
+                 prior_w: float = 0.0, sigma: float = 0.0,
+                 info: Optional[np.ndarray] = None) -> int:
         e = self.num_edges
         self.k2k_from = _grow(self.k2k_from, e + 1)
         self.k2k_to = _grow(self.k2k_to, e + 1)
         self.k2k_pose = _grow(self.k2k_pose, e + 1)
         self.k2k_prior = _grow(self.k2k_prior, e + 1)
         self.k2k_prior_w = _grow(self.k2k_prior_w, e + 1)
+        self.k2k_sigma = _grow(self.k2k_sigma, e + 1)
+        self.k2k_info = _grow(self.k2k_info, e + 1)
         self.k2k_from[e] = from_kf
         self.k2k_to[e] = to_kf
         self.k2k_pose[e] = pose
         self.k2k_prior[e] = pose      # creation value IS the measurement
         self.k2k_prior_w[e] = prior_w
+        self.k2k_sigma[e] = sigma
+        self.k2k_info[e] = 0.0 if info is None else info
         self.num_edges += 1
         return e
 

@@ -1,8 +1,9 @@
 """Batched small-block SPD inverse — port of :mod:`srba_tpu.ops.block_linalg`.
 
-The solver inverts stacks of ``[B, d, d]`` symmetric positive-definite
-blocks with d in {1, 2, 3, 6} (the Schur landmark blocks; the global PGO
-block-Jacobi preconditioner later).  Two versions of the same arithmetic:
+The solvers invert stacks of ``[B, d, d]`` symmetric positive-definite
+blocks with d in {1, 2, 3, 6} (the Schur landmark blocks of the window
+solve; the block-Jacobi preconditioner of the global PGO).  Two versions of
+the same arithmetic:
 
 * :func:`spd_inverse_unrolled` — the plain torch version: an unrolled
   Cholesky, triangular inverse and ``L^-T L^-1`` product whose every step is
@@ -133,8 +134,8 @@ def spd_inverse_cuda(m: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on ``m`` ([..., d, d] f32, contiguous, on a
     CUDA device, d in {1, 2, 3, 6}) on the current stream.  Raises on any
     other input and on a failed build or launch.  Each launch adds one to
-    ``spd_inverse_cuda.launches`` and to
-    ``spd_inverse_cuda.launches_by_d[d]`` (the count per block size)."""
+    ``spd_inverse_cuda.launches_by_shape[(B, d)]``, the count per stack of
+    B blocks of size d."""
     if m.device.type != "cuda":
         raise ValueError(f"spd_inverse_cuda needs a CUDA tensor, got "
                          f"{m.device}")
@@ -160,14 +161,12 @@ def spd_inverse_cuda(m: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(
             "spd_inverse kernel launch failed: "
             f"{lib.srba_cuda_error_string(rc).decode()} (cudaError {rc})")
-    spd_inverse_cuda.launches += 1
-    by_d = spd_inverse_cuda.launches_by_d
-    by_d[d] = by_d.get(d, 0) + 1
+    by_shape = spd_inverse_cuda.launches_by_shape
+    by_shape[(B, d)] = by_shape.get((B, d), 0) + 1
     return out
 
 
-spd_inverse_cuda.launches = 0
-spd_inverse_cuda.launches_by_d = {}
+spd_inverse_cuda.launches_by_shape = {}
 
 
 def spd_inverse(m: torch.Tensor) -> torch.Tensor:

@@ -157,6 +157,20 @@ def quat_log(q):
     return k * v
 
 
+def quat_to_matrix(q):
+    """Unit quaternion ``[..., 4]`` -> rotation matrix ``[..., 3, 3]``."""
+    w, x, y, z = q.unbind(-1)
+    r = torch.stack(
+        [
+            1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+            2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+            2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+        ],
+        dim=-1,
+    )
+    return r.reshape(r.shape[:-1] + (3, 3))
+
+
 # -- quaternion forward mode (tangents only; see the module docstring) ------
 
 

@@ -31,7 +31,13 @@ class Profiler:
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self.stats: Dict[str, _Stat] = defaultdict(_Stat)
+        # Event counters (e.g. the global PGO's device reads per solve).
+        self.counters: Dict[str, int] = defaultdict(int)
         self._stack: List[str] = []
+
+    def count(self, name: str, n: int = 1) -> None:
+        if self.enabled:
+            self.counters[name] += n
 
     @contextmanager
     def scope(self, name: str):
@@ -57,6 +63,8 @@ class Profiler:
                 f"{key:<48}{s.count:>7}{1e3 * s.total / max(s.count, 1):>10.3f}"
                 f"{1e3 * s.t_min:>10.3f}{1e3 * s.t_max:>10.3f}"
                 f"{s.total:>10.3f}")
+        for key in sorted(self.counters):
+            lines.append(f"{key:<48}{self.counters[key]:>7}")
         return "\n".join(lines)
 
     def mean(self, key: str) -> float:

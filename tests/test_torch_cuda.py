@@ -27,6 +27,13 @@ def cuda():
     return torch.device("cuda")
 
 
+def _launches(d=None):
+    """The SPD kernel's launches so far, at block size ``d`` or in all."""
+    from srba_tpu_torch.ops import block_linalg as bl
+    return sum(n for (_, dd), n in bl.spd_inverse_cuda.launches_by_shape.items()
+               if d is None or dd == d)
+
+
 def _spd_stack(B, d, seed=0, cond=5.0):
     rng = np.random.default_rng(seed)
     A = rng.normal(size=(B, d, d)).astype(np.float32)
@@ -38,10 +45,10 @@ def _spd_stack(B, d, seed=0, cond=5.0):
 def test_kernel_matches_plain(cuda, B, d):
     from srba_tpu_torch.ops import block_linalg as bl
     m = torch.as_tensor(_spd_stack(B, d), device=cuda)
-    n0 = bl.spd_inverse_cuda.launches
+    n0 = bl.spd_inverse_cuda.launches_by_shape.get((B, d), 0)
     out = bl.spd_inverse(m)
     torch.cuda.synchronize()
-    assert bl.spd_inverse_cuda.launches == n0 + 1
+    assert bl.spd_inverse_cuda.launches_by_shape[(B, d)] == n0 + 1
     torch.testing.assert_close(out, bl.spd_inverse_unrolled(m), rtol=2e-4,
                                atol=2e-5)
 
@@ -72,15 +79,14 @@ def _run(device, frames, odometry, model="RangeBearing2D", sigma=0.005):
 
 
 def test_engine_on_cuda_matches_cpu_and_repeats_bitwise(cuda):
-    from srba_tpu_torch.ops import block_linalg as bl
     from srba_tpu_torch.utils.datasets import make_world_loop_2d, observe
     world = make_world_loop_2d(num_kfs=25, radius=6.0, num_landmarks=60,
                                seed=7)
     ds = observe(world, "RangeBearing2D", noise_std=0.005, sensor_range=5.0,
                  odo_noise_std=0.03, seed=7)
-    n0 = bl.spd_inverse_cuda.launches
+    n0 = _launches()
     eg = _run("cuda", ds.frames, ds.odometry)
-    assert bl.spd_inverse_cuda.launches > n0
+    assert _launches() > n0
     ec = _run("cpu", ds.frames, ds.odometry)
     sg, sc = eg.get_rba_state(), ec.get_rba_state()
     np.testing.assert_allclose(sg.k2k_pose[:sg.num_edges],
@@ -111,11 +117,10 @@ def test_se3_and_graph_slam_engines_on_cuda_match_cpu(cuda, model):
     """The 20-KF 3D range-bearing loop and the 25-KF graph-SLAM loop on the
     card against the CPU, through the kernel at block size 3, and bitwise
     equal masters on a rerun."""
-    from srba_tpu_torch.ops import block_linalg as bl
     ds, sigma = _wide_dataset(model)
-    n0 = bl.spd_inverse_cuda.launches_by_d.get(3, 0)
+    n0 = _launches(3)
     eg = _run("cuda", ds.frames, ds.odometry, model, sigma)
-    assert bl.spd_inverse_cuda.launches_by_d.get(3, 0) > n0
+    assert _launches(3) > n0
     assert eg.device_master.pose.is_cuda and eg.device_master.lm.is_cuda
     ec = _run("cpu", ds.frames, ds.odometry, model, sigma)
     sg, sc = eg.get_rba_state(), ec.get_rba_state()
@@ -127,3 +132,63 @@ def test_se3_and_graph_slam_engines_on_cuda_match_cpu(cuda, model):
     eg2 = _run("cuda", ds.frames, ds.odometry, model, sigma)
     assert torch.equal(eg.device_master.pose, eg2.device_master.pose)
     assert torch.equal(eg.device_master.lm, eg2.device_master.lm)
+
+
+def _ring_problem(group, K=200, seed=0):
+    """A noisy SE(2)/SE(3) ring of K poses with a chord every 20 poses and
+    perturbed initial nodes (the port's numpy groups, no JAX)."""
+    from srba_tpu_torch.ops.np_lie import NpSE2, NpSE3
+    g = NpSE2 if group == "SE2" else NpSE3
+    dof = 3 if group == "SE2" else 6
+    rng = np.random.default_rng(seed)
+    th = 2 * np.pi * np.arange(K) / K
+    if group == "SE2":
+        gt = np.stack([[8 * np.cos(t), 8 * np.sin(t), t + np.pi / 2]
+                       for t in th]).astype(np.float32)
+        gt[:, 2] = np.arctan2(np.sin(gt[:, 2]), np.cos(gt[:, 2]))
+    else:
+        gt = np.stack([g.pexp(np.asarray(
+            [8 * np.cos(t), 8 * np.sin(t), 0.2 * np.sin(3 * t), 0, 0,
+             t + np.pi / 2], np.float32)) for t in th])
+
+    def rel(i, j):
+        return g.compose(g.inverse(gt[i]), gt[j]).astype(np.float32)
+
+    edges = [{"from": k - 1, "to": k, "rel_pose": g.retract(
+        rel(k - 1, k), rng.normal(0, 0.01, dof).astype(np.float32))}
+        for k in range(1, K)]
+    edges += [{"from": i, "to": (i + K // 2) % K,
+               "rel_pose": rel(i, (i + K // 2) % K)}
+              for i in range(0, K, 20)]
+    nodes = np.stack([g.retract(gt[k], rng.normal(0, 0.05, dof).astype(
+        np.float32)) for k in range(K)]).astype(np.float32)
+    nodes[0] = gt[0]
+    return {"group": group, "nodes": nodes, "edges": edges}
+
+
+@pytest.mark.parametrize("group,d", [("SE2", 3), ("SE3", 6)])
+def test_pgo_on_cuda_matches_cpu_and_repeats_bitwise(cuda, group, d):
+    """The K = 200 global PGO (chordal init) on the card against the CPU
+    (nodes atol 1e-3, err_final rel 1e-3: the whole-solve tolerances of
+    tests/test_torch_global_pgo.py), bitwise equal on a rerun, through the
+    kernel on [256, d, d].  CG runs to its tolerance (cg_iters 1000): with
+    100 iterations each LM step stops short, LM certifies on relative
+    progress away from the optimum, and two roundings stop ~2e-3 apart at
+    equal error (the JAX package and the port on the CPU as well); with
+    whole CG solves both reach the optimum (~7e-5 apart on the CPU)."""
+    from srba_tpu_torch.ops import block_linalg as bl
+    from srba_tpu_torch.solver.global_graphslam import (
+        PGOConfig, optimize_global_pose_graph)
+    prob = _ring_problem(group)
+    cfg = PGOConfig(group=group, cg_iters=1000, chordal_init=True)
+    n0 = bl.spd_inverse_cuda.launches_by_shape.get((256, d), 0)
+    G, info = optimize_global_pose_graph(prob, cfg, device=cuda)
+    n1 = bl.spd_inverse_cuda.launches_by_shape.get((256, d), 0)
+    # One launch per LM iteration.
+    assert n1 - n0 == info["iters"] > 0
+    assert info["converged"] == 1.0
+    Gc, ic = optimize_global_pose_graph(prob, cfg, device="cpu")
+    np.testing.assert_allclose(G, Gc, atol=1e-3)
+    assert info["err_final"] == pytest.approx(ic["err_final"], rel=1e-3)
+    G2, _ = optimize_global_pose_graph(prob, cfg, device=cuda)
+    assert np.array_equal(G, G2)

@@ -123,3 +123,31 @@ def test_closure_targets_raise():
             edge_init={k - 1: [0.1, 0.0, 0.0]} if k else None)
     with pytest.raises(NotImplementedError, match="loop-closure"):
         eng.define_new_keyframe([], edge_init={1: [0.1, 0.0, 0.0]})
+
+
+@pytest.mark.parametrize("mod", ["srba_tpu_torch.solver.global_graphslam",
+                                 "srba_tpu_torch.solver.chordal",
+                                 "srba_tpu_torch.io.export"])
+def test_pgo_modules_import_without_jax(mod):
+    """Each module of the global PGO, alone in a fresh interpreter, pulls in
+    no jax, jaxlib, flax or srba_tpu module."""
+    code = (
+        f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                    'srba_tpu'))\n"
+        "print('LEAKED', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_unported_global_pgo_paths_raise():
+    """The edge-sharded global PGO is not ported: the engine's
+    ``optimize_global(mesh=...)`` raises by name, before any solve."""
+    from srba_tpu_torch import SrbaEngine
+
+    eng = SrbaEngine("RelativePoses2D", device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        eng.optimize_global(mesh=object())

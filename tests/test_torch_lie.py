@@ -189,6 +189,20 @@ def test_se3_values_match_jax(op):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
+def test_quat_to_matrix_matches_jax():
+    """Unit quaternions (both hemispheres, the identity and half-turns) to
+    rotation matrices, as the chordal initializer reads them."""
+    q = _se3_poses(64, 24)[:, 3:]
+    q[:8] *= -1.0
+    q = np.concatenate([q, np.eye(4, dtype=np.float32)])
+    ref = np.asarray(jlie.quat_to_matrix(jnp.asarray(q)))
+    out = tlie.quat_to_matrix(_t(q)).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+    np.testing.assert_allclose(out @ np.swapaxes(out, -1, -2),
+                               np.broadcast_to(np.eye(3), out.shape),
+                               atol=ATOL)
+
+
 def test_se3_identity_and_groups():
     assert torch.equal(tlie.SE3.identity(),
                        torch.from_numpy(np.array(jlie.SE3.identity())))
