@@ -6,9 +6,16 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. card and flags: the card's name and power limit, torch version, TF32 off;
-2. build of the hand-written CUDA kernel (SPD block inverse) from source;
+2. build of the hand-written CUDA kernel (SPD block inverse) from source,
+   with nvcc's ``-Xptxas -v`` registers, shared memory and spills per
+   kernel, and the blocks each CTA takes;
 3. the kernel against its plain torch version on the card, at the solver's
-   shapes, with times of both;
+   shapes, the edges of a CTA's blocks and a view one block into a stack,
+   with a SHA-256 of each output; then at the eight measured shapes
+   (``srba_tpu_torch/tools/spd_inverse_bench.py``) the time per call of the
+   kernel's wrapper, the plain version and ``torch.linalg.inv_ex``, and
+   the kernel's device time per launch (cold, warm, profiler) with its HBM
+   bound and share of it;
 4. a large window solve (E=256 edges, L=4096 landmarks, N=16384
    observations, depth 4) for 6 LM iterations;
 5. config #1 end to end (2D range-bearing SE(2), 100-keyframe loop, the
@@ -48,7 +55,6 @@ targets has none.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -79,33 +85,6 @@ def check(ok: bool, what: str) -> None:
     """A phase's check: raises (so the script exits non-zero) if it fails."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
-
-
-def spd_stack(B, d, seed=0, cond=5.0):
-    """SPD test stacks as in tests/test_block_linalg.py."""
-    rng = np.random.default_rng(seed)
-    A = rng.normal(size=(B, d, d)).astype(np.float32)
-    return A @ A.transpose(0, 2, 1) + cond * np.eye(d, dtype=np.float32)
-
-
-def cuda_time_ms(fn, x, iters=200, repeats=5):
-    """Median over ``repeats`` of the mean time per call of ``fn(x)`` over
-    ``iters`` back-to-back calls, by CUDA events (warmed up first)."""
-    import torch
-    for _ in range(10):
-        fn(x)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(iters):
-            fn(x)
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1) / iters)
-    return statistics.median(times)
 
 
 def large_window_batch(E=256, L=4096, N=16384, D=4, seed=0):
@@ -550,6 +529,7 @@ def phase_chordal(card: str):
     from srba_tpu_torch.solver.chordal import _matrix_to_quat, _project_so
     from srba_tpu_torch.solver.global_graphslam import (
         PGOConfig, optimize_global_pose_graph)
+    from srba_tpu_torch.tools.spd_inverse_bench import cuda_time_ms
 
     t_phase = time.perf_counter()
     prob, gt = chordal_problem()
@@ -617,20 +597,36 @@ def main() -> int:
         "float32_matmul_precision=highest")
 
     # -- 2. kernel build -----------------------------------------------------
+    from srba_tpu_torch.tools import spd_inverse_bench as kb
     t0 = time.perf_counter()
     bl.load_kernel_library()
     log(f"[2] spd_inverse kernel built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
+    report = bl.ptxas_report(bl.build_kernel_library()).read_text()
+    ptxas = kb.ptxas_summary(report)
+    for name, regs, smem, spill_st, spill_ld in ptxas:
+        log(f"[2] ptxas -v {name}: {regs} registers, {smem} B shared "
+            f"memory, {spill_st} B spill stores, {spill_ld} B spill loads")
+    # Two kernels (aligned or not) per block size.
+    check(len(ptxas) == 8, f"ptxas report lists {len(ptxas)} kernels, not 8")
+    tiles = {d: bl.kernel_tile(d) for d in (1, 2, 3, 6)}
+    check(all(t > 0 for t in tiles.values()) and bl.kernel_tile(4) == 0,
+          f"blocks per CTA {tiles}")
+    log("[2] blocks per CTA: " + ", ".join(f"d={d} {t}"
+                                           for d, t in tiles.items()))
 
     # -- 3. kernel vs plain version on the card ------------------------------
     t_phase = time.perf_counter()
     max_err = 0.0
     # The B of the paths: 64 (window buckets), 256 (config #4's PGO), 32768
-    # (pgo20k); others test odd and large stacks.
+    # (pgo20k); others test odd and large stacks and the edges of a CTA's
+    # T blocks (T - 1, T + 1, 2T + 1).
     kernel_shapes = [(B, d) for d in (1, 2, 3, 6)
                      for B in (1, 7, 300, 64, 256, 4096, 32768, 131072)]
+    kernel_shapes += [(B, d) for d, T in tiles.items()
+                      for B in (T - 1, T + 1, 2 * T + 1)]
     for B, d in kernel_shapes:
-        m = torch.as_tensor(spd_stack(B, d), device="cuda")
+        m = torch.as_tensor(kb.spd_stack(B, d), device="cuda")
         out = bl.spd_inverse_cuda(m)
         ref = bl.spd_inverse_unrolled(m)
         torch.cuda.synchronize()
@@ -638,24 +634,29 @@ def main() -> int:
         max_err = max(max_err, err)
         check(torch.allclose(out, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL),
               f"kernel != plain at [{B},{d},{d}]: max|diff| {err:.3e}")
-    m = torch.as_tensor(spd_stack(8192, 6, cond=6.0), device="cuda")
+        log(f"[3] [{B},{d},{d}] output sha256 {kb.output_digest(out)}")
+    m = torch.as_tensor(kb.spd_stack(8192, 6, cond=6.0), device="cuda")
     err = float((bl.spd_inverse_cuda(m) - bl.spd_inverse_unrolled(m))
                 .abs().max())
     max_err = max(max_err, err)
     check(err < 1e-3, f"kernel != plain at [8192,6,6]: {err:.3e}")
+    # A view one block into a stack: 36 B off 16-byte alignment at d = 3.
+    big = torch.as_tensor(kb.spd_stack(4098, 3), device="cuda")
+    view_out = bl.spd_inverse_cuda(big[1:])
+    check(torch.equal(view_out, bl.spd_inverse_cuda(big[1:].clone()))
+          and torch.allclose(view_out, bl.spd_inverse_unrolled(big[1:]),
+                             rtol=KERNEL_RTOL, atol=KERNEL_ATOL),
+          "kernel on a view at a 36-byte offset")
     log(f"[3] kernel matches plain (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}) "
         f"at {len(kernel_shapes)} shapes, d in {{1,2,3,6}}; "
         f"[8192,6,6] max|diff| {err:.3e} (< 1e-3); "
-        f"max|diff| overall {max_err:.3e}")
+        f"max|diff| overall {max_err:.3e}; a [4097,3,3] view at a 36-byte "
+        "offset bitwise equal to the kernel on an aligned copy")
+    timer = kb.KernelTimer()
     times = {}
-    for B, d in ((64, 2), (64, 3), (256, 3), (4096, 2), (32768, 6),
-                 (131072, 6)):
-        m = torch.as_tensor(spd_stack(B, d), device="cuda")
-        k_ms = cuda_time_ms(bl.spd_inverse_cuda, m)
-        p_ms = cuda_time_ms(bl.spd_inverse_unrolled, m)
-        times[(B, d)] = (k_ms, p_ms)
-        log(f"[3] [{B},{d},{d}]: kernel {k_ms * 1e3:.2f} us, "
-            f"plain torch {p_ms * 1e3:.2f} us (median of 5 x 200 calls)")
+    for B, d in kb.SHAPES:
+        times[(B, d)] = kb.measure_shape(B, d, timer)
+        log(f"[3] {kb.format_shape(B, d, times[(B, d)])} (on {card})")
     log(f"[3] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
     # -- 4. large window solve -----------------------------------------------
@@ -741,7 +742,8 @@ def main() -> int:
     phase_chordal(card)
     check_flags()
 
-    k_ms, p_ms = times[(64, 2)]
+    # The main path's shape: config #1's Schur blocks.
+    main = times[(64, 2)]
     log(json.dumps({"kernels": [{
         "name": "spd_inverse",
         "route": "cuda",
@@ -752,10 +754,17 @@ def main() -> int:
                              for k, v in launches.items()},
         "d_by_path": {k: sorted(v) for k, v in launches.items()},
         "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "ms_by_shape": {f"[{B},{d},{d}]": {"ms": t[0], "plain_ms": t[1]}
-                        for (B, d), t in times.items()},
+        "shape": "[64,2,2]",
+        # ms, plain_ms and library_ms: time per call, one method for all.
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_us"] / 1e3,
+        "bound_by": "bytes",
+        "library_ms": main["library_ms"],
+        # The kernel's device time per launch, in a CUDA graph.
+        "cold_ms": main["cold_ms"],
+        "warm_ms": main["warm_ms"],
+        "ms_by_shape": {f"[{B},{d},{d}]": r for (B, d), r in times.items()},
     }]}))
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1,0 +1,1 @@
+"""Measuring tools of the port that run on the card (``python -m``)."""

@@ -64,6 +64,85 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         bl.spd_inverse_cuda(torch.eye(4, device=cuda).repeat(3, 1, 1))
 
 
+@pytest.mark.parametrize("d", [1, 2, 3, 6])
+@pytest.mark.parametrize("edge", [-1, 0, 1, "2T+1"])
+def test_kernel_matches_plain_at_tile_edges(cuda, d, edge):
+    """B = T - 1, T, T + 1 and 2T + 1 for the T blocks a CTA takes (at
+    d = 3 the odd ones leave tail bytes that are not a multiple of 16)."""
+    from srba_tpu_torch.ops import block_linalg as bl
+    T = bl.kernel_tile(d)
+    B = 2 * T + 1 if edge == "2T+1" else T + edge
+    m = torch.as_tensor(_spd_stack(B, d, seed=B), device=cuda)
+    out = bl.spd_inverse(m)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, bl.spd_inverse_unrolled(m), rtol=2e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 6])
+def test_kernel_on_views_at_a_one_block_offset(cuda, d):
+    """A contiguous view one block into a stack (36 B off at d = 3, not
+    16-byte aligned) as input and as output: the plain version's result,
+    bitwise equal to the kernel on an aligned copy."""
+    from srba_tpu_torch.ops import block_linalg as bl
+    B = 2 * bl.kernel_tile(d) + 3
+    big = torch.as_tensor(_spd_stack(B + 1, d, seed=2), device=cuda)
+    view = big[1:]
+    assert view.is_contiguous()
+    assert view.data_ptr() % 16 == (d * d * 4) % 16
+    aligned = bl.spd_inverse(view.clone())
+    out = bl.spd_inverse(view)
+    out_big = torch.empty_like(big)
+    assert bl.spd_inverse_cuda(view, out_big[1:]).data_ptr() \
+        == out_big[1:].data_ptr()
+    torch.cuda.synchronize()
+    assert torch.equal(out, aligned)
+    assert torch.equal(out_big[1:], aligned)
+    torch.testing.assert_close(out, bl.spd_inverse_unrolled(view),
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 6])
+def test_non_spd_blocks_give_non_finite_entries_where_plain_does(cuda, d):
+    """Blocks that are not positive definite (negated, or with a negative
+    last pivot; at d = 1 a zero and a negative value): NaN and inf in the
+    same entries as the plain version, the other blocks unharmed."""
+    from srba_tpu_torch.ops import block_linalg as bl
+    m = torch.as_tensor(_spd_stack(300, d, seed=3), device=cuda)
+    m[5] = -m[5]
+    m[200, d - 1, d - 1] = -50.0
+    if d == 1:
+        m[7] = 0.0
+    out = bl.spd_inverse(m)
+    ref = bl.spd_inverse_unrolled(m)
+    torch.cuda.synchronize()
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert torch.equal(out.isinf(), ref.isinf())
+    if d > 1:
+        assert out[5].isnan().all() and out[200].isnan().any()
+    fin = ref.isfinite()
+    torch.testing.assert_close(out[fin], ref[fin], rtol=2e-4, atol=2e-5)
+    ok = torch.ones(300, dtype=torch.bool, device=cuda)
+    ok[[5, 7, 200]] = False
+    assert out[ok].isfinite().all()
+
+
+def test_kernel_refuses_what_it_is_not_built_for(cuda):
+    """The C entry point refuses a block size it has no kernel for (and
+    reports no tile for it); the wrapper refuses an output of the wrong
+    shape."""
+    from srba_tpu_torch.ops import block_linalg as bl
+    m = torch.as_tensor(_spd_stack(300, 6), device=cuda)
+    out = torch.empty_like(m)
+    lib = bl.load_kernel_library()
+    assert lib.srba_spd_inverse_tile(4) == 0
+    rc = lib.srba_spd_inverse_f32(m.data_ptr(), out.data_ptr(), 50, 4,
+                                  torch.cuda.current_stream().cuda_stream)
+    assert lib.srba_cuda_error_string(rc).decode() == "invalid argument"
+    with pytest.raises(ValueError):
+        bl.spd_inverse_cuda(m, out[1:])
+
+
 def _run(device, frames, odometry, model="RangeBearing2D", sigma=0.005):
     import srba_tpu_torch as port
     from srba_tpu_torch.models.noise import NoiseIdentity
