@@ -44,7 +44,20 @@ Phases (any failure raises and the script exits non-zero):
    and after, and one more keyframe after the write-back;
 11. chordal initialization on the card: the four-revolution SE(3) yaw-drift
    problem of tests/test_chordal.py, ATE bound, and the times of the SVD
-   projection and the matrix-to-quaternion step.
+   projection and the matrix-to-quaternion step;
+12. config #3 end to end (stereo SE(3) with the camera mounted on the
+   robot, local-areas edge policy, loop closures bootstrapped from the
+   re-observed landmarks; bench.py's data and parameters, 500 keyframes):
+   a warm pass and a timed pass of the whole run, KF/s, edges with the
+   closure edges apart, closure fits by outcome and weak fits flushed, the
+   kernel's launches by shape, the profiler table with the host mirror's
+   prefetch hits and misses, the two passes' masters bitwise equal, the
+   first 20 keyframes on the CPU against the card (ATE), and those
+   keyframes' window steps started from the same state on both (errors);
+13. config #3's terminal ``optimize_global()`` on the timed pass's engine:
+   certification, error and iterations, ATE bound, the kernel on
+   ``[Kp, 6, 6]`` held against its plain version on the stacks the solve
+   built, and one more keyframe after the write-back.
 
 Every phase prints its wall time.  The line before the last is the card as
 ``nvidia-smi`` names it; the JSON line before that lists the kernels; the
@@ -62,14 +75,24 @@ from contextlib import contextmanager
 
 import numpy as np
 
-# bench.py ATE_BOUNDS["config1_rb2d"], ["config2_rb3d"],
-# ["config4_graphslam"].
-ATE_BOUND = {"config1": 0.16, "config2": 0.18, "config4": 0.04}
+# bench.py ATE_BOUNDS["config1_rb2d"], ["config2_rb3d"], ["config3_stereo"]
+# (after its global PGO), ["config4_graphslam"].
+ATE_BOUND = {"config1": 0.16, "config2": 0.18, "config3": 0.25,
+             "config4": 0.04}
 KERNEL_RTOL, KERNEL_ATOL = 2e-4, 2e-5
 # Port-vs-port (CUDA vs CPU) agreement: the e2e parity tolerance of
 # tests/test_torch_e2e_rb2d.py (and _rb3d.py, _graphslam.py).
 CPU_AGREE_ATOL = 1e-3
 WARMUP_KFS, AGREE_KFS = 10, 20
+# Config #3, CUDA vs CPU.  Its windows have near-flat directions and its LM
+# runs 3 iterations per keyframe, so the two devices' roundings take the
+# state apart along them within the first 20 keyframes (PERF.md): the runs
+# are held to |ATE diff| < 1e-2 m (a 25th of the bound), and each
+# keyframe's step, started from the same state on both, to the same
+# initial error (rel 1e-5: f32 sums of ~1e3 terms) and final error (rel
+# 1e-2).
+CONFIG3_ATE_AGREE = 1e-2
+STEP_ERR_INIT_RTOL, STEP_ERR_FINAL_RTOL = 1e-5, 1e-2
 # Global PGO, CUDA vs CPU: the whole-solve parity tolerances of
 # tests/test_torch_global_pgo.py (nodes atol 1e-3, err_final rel 1e-3).
 PGO_NODE_ATOL, PGO_ERR_RTOL = 1e-3, 1e-3
@@ -142,29 +165,53 @@ def large_window_batch(E=256, L=4096, N=16384, D=4, seed=0):
 
 def make_config(name: str):
     """bench.py's data and parameters of config #1 (``bench.py:98-120``),
-    #2 (``:127-145``) or #4 (``:195-216``), unreduced.  Returns (world,
-    dataset, observation model, noise sigma, ATE dimensions)."""
+    #2 (``:127-145``), #3 (``:152-188``) or #4 (``:195-216``), unreduced.
+    Returns (world, dataset, observation model, noise sigma, ATE
+    dimensions, the engine's other arguments)."""
+    import srba_tpu_torch as port
+    from srba_tpu_torch.ecps import LocalAreasFixedGrid
+    from srba_tpu_torch.models.observations import StereoCalib
+    from srba_tpu_torch.models.sensor_pose import SensorPoseSE3
+    from srba_tpu_torch.ops.np_lie import CAMERA_SENSOR_POSE_SE3
     from srba_tpu_torch.utils import datasets as tds
 
+    depth4 = {"params": port.SrbaParams(max_tree_depth=4,
+                                        max_optimize_depth=4)}
     if name == "config1":
         world = tds.make_world_loop_2d(num_kfs=100, radius=10.0,
                                        num_landmarks=180, seed=11)
         ds = tds.observe(world, "RangeBearing2D", noise_std=0.005,
                          sensor_range=6.0, odo_noise_std=0.01, seed=11)
-        return world, ds, "RangeBearing2D", 0.005, 2
+        return world, ds, "RangeBearing2D", 0.005, 2, depth4
     if name == "config2":
         world = tds.make_world_loop_3d(num_kfs=100, radius=9.0,
                                        num_landmarks=250, height_amp=1.0,
                                        seed=3)
         ds = tds.observe(world, "RangeBearing3D", noise_std=0.005,
                          sensor_range=6.0, odo_noise_std=0.01, seed=3)
-        return world, ds, "RangeBearing3D", 0.005, 3
+        return world, ds, "RangeBearing3D", 0.005, 3, depth4
+    if name == "config3":
+        world = tds.make_world_loop_3d(num_kfs=500, radius=8.0,
+                                       num_landmarks=400, height_amp=0.5,
+                                       seed=1)
+        calib = StereoCalib.make(fx=200.0, fy=200.0, cx=160.0, cy=120.0,
+                                 baseline=0.12)
+        ds = tds.observe(world, "StereoCamera", calib=calib, noise_std=0.3,
+                         sensor_range=9.0, odo_noise_std=0.01, seed=1)
+        return world, ds, "StereoCamera", 0.3, 3, {
+            "calib": calib,
+            "sensor_pose": SensorPoseSE3(CAMERA_SENSOR_POSE_SE3),
+            "ecp": LocalAreasFixedGrid(submap_size=10,
+                                       min_obs_count_loop_closure=5),
+            "params": port.SrbaParams(max_tree_depth=4, max_optimize_depth=3,
+                                      extra_obs_per_lm_cap=6,
+                                      incremental_max_iters=3)}
     world = tds.make_world_loop_2d(num_kfs=150, radius=8.0, num_landmarks=1,
                                    seed=5, revolutions=2.0)
     ds = tds.make_graph_slam_dataset(world, noise_std=0.002,
                                      loop_closure_range=1.5,
                                      odo_noise_std=0.01, seed=5)
-    return world, ds, "RelativePoses2D", 0.002, 2
+    return world, ds, "RelativePoses2D", 0.002, 2, depth4
 
 
 def run_config(cfg, device: str, num_kfs=None):
@@ -176,11 +223,9 @@ def run_config(cfg, device: str, num_kfs=None):
     from srba_tpu_torch.models.noise import NoiseIdentity
     from srba_tpu_torch.utils.datasets import ate_rmse
 
-    world, ds, model, sigma, d = cfg
-    eng = port.SrbaEngine(
-        model, noise=NoiseIdentity(sigma),
-        params=port.SrbaParams(max_tree_depth=4, max_optimize_depth=4),
-        device=device)
+    world, ds, model, sigma, d, engine_kw = cfg
+    eng = port.SrbaEngine(model, noise=NoiseIdentity(sigma), device=device,
+                          **engine_kw)
     t0 = time.perf_counter()
     for k, frame in enumerate(ds.frames[:num_kfs]):
         obs = [port.Observation(lm_id=m, z=z) for m, z in frame]
@@ -226,6 +271,29 @@ def pgo_kernel_inputs():
         yield seen
     finally:
         pgo.spd_inverse = spd_inverse
+
+
+@contextmanager
+def window_buckets():
+    """Counts the padded window shapes (E, L, N) and LM iteration caps of
+    every device step run inside (the steps themselves are unchanged)."""
+    from collections import Counter
+
+    from srba_tpu_torch.engine.device_master import DeviceMaster
+    seen = Counter()
+    step = DeviceMaster.step
+
+    def recorder(self, cfg, *args, iters_cap: int = 0):
+        edge_ids, lm_ids, obs_lm = args[3], args[5], args[7]
+        seen[(len(edge_ids), len(lm_ids), len(obs_lm),
+              iters_cap or cfg.max_iters)] += 1
+        return step(self, cfg, *args, iters_cap=iters_cap)
+
+    DeviceMaster.step = recorder
+    try:
+        yield seen
+    finally:
+        DeviceMaster.step = step
 
 
 def check_kernel_on(tag: str, bl, stacks) -> None:
@@ -425,7 +493,7 @@ def phase_config4_pgo(eng, cfg4, card: str, bl):
     from srba_tpu_torch.utils.profiler import Profiler
 
     t_phase = time.perf_counter()
-    world, ds, _, _, d = cfg4
+    world, ds, _, _, d, _ = cfg4
 
     def ate(G=None):
         if G is None:
@@ -558,6 +626,174 @@ def phase_chordal(card: str):
     log(f"[11] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_config3(card: str, bl):
+    """Phase 12: config #3 end to end, a warm and a timed pass of the whole
+    run as bench.py makes them (the two passes' masters then compare
+    bitwise).  Returns the kernel's launches per block size in the timed
+    pass, the timed pass's engine and the config's data."""
+    t_phase = time.perf_counter()
+    cfg = make_config("config3")
+    K = len(cfg[1].frames)
+    with window_buckets() as buckets:
+        eng_w, warm, _ = run_config(cfg, "cuda")
+    log(f"[12] config3 warm pass ({eng_w.num_keyframes} KFs): {warm:.3f} s; "
+        "window steps by padded (E, L, N) and LM iterations: "
+        + ", ".join(f"{key} x{n}" for key, n in sorted(buckets.items())))
+    reset_launch_counts(bl)
+    eng, dt, ate = run_config(cfg, "cuda")
+    launches = launches_by_d(bl)
+    by_shape = dict(bl.spd_inverse_cuda.launches_by_shape)
+    dm = eng.device_master
+    check(dm.pose.is_cuda and dm.prior.is_cuda and dm.lm.is_cuda,
+          "config3 masters are not CUDA tensors")
+    check(set(launches) == {3} and launches[3] > 0,
+          f"config3 kernel launches by block size {launches}, expected "
+          "[L, 3, 3] only")
+    closures = eng.state.num_edges - (K - 1)
+    fits = {k: v for k, v in sorted(eng.profiler.counters.items())
+            if k.startswith("closure_")}
+    log(f"[12] config3 timed pass on {card}: {K} KFs in {dt:.3f} s = "
+        f"{K / dt:.2f} KF/s, ATE before the global PGO {ate:.6f} m, "
+        f"{eng.num_landmarks} landmarks, {eng.state.num_obs} observations, "
+        f"{eng.state.num_edges} edges of which {closures} closure edges, "
+        f"{len(eng._closure_pending)} weak fits still pending; closure "
+        f"counters {fits}; host mirror {dm.sync_stats}")
+    log(f"[12] spd_inverse kernel launches {sum(launches.values())} by "
+        f"[B, d]: {shapes(by_shape)}; mean device_step "
+        f"{mean_device_step_ms(eng):.3f} ms")
+    check(closures >= 1, "config3 created no closure edge")
+    log(f"[12] {eng.profiler.report()}")
+    check(masters_equal(eng_w, eng),
+          "config3 masters differ between the warm and timed passes")
+    log("[12] warm and timed passes: pose, prior and landmark masters "
+        "bitwise equal")
+    eng_g, _, ate_g = run_config(cfg, "cuda", AGREE_KFS)
+    eng_c, _, ate_c = run_config(cfg, "cpu", AGREE_KFS)
+    d_edge, d_lm, d_ate = agree_with_cpu("config3", eng_g, ate_g, eng_c,
+                                         ate_c)
+    err_g = eng_g.eval_overall_squared_error()
+    err_c = eng_c.eval_overall_squared_error()
+    d_err = abs(err_g - err_c) / err_c
+    log(f"[12] config3 first {AGREE_KFS} KFs, CUDA vs CPU: max|edge diff| "
+        f"{d_edge:.3e}, max|landmark diff| {d_lm:.3e}, |ATE diff| "
+        f"{d_ate:.3e} (atol {CONFIG3_ATE_AGREE}), total squared error "
+        f"{err_g:.6e} vs {err_c:.6e}, rel diff {d_err:.3e}")
+    check(d_ate < CONFIG3_ATE_AGREE,
+          "config3 on CUDA disagrees with the same run on the CPU")
+    lockstep_steps("[12] config3", cfg, AGREE_KFS)
+    log(f"[12] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches, eng, cfg
+
+
+def lockstep_steps(tag: str, cfg, num_kfs: int) -> None:
+    """The config's first ``num_kfs`` keyframes on the card and on the CPU
+    in lockstep, the card's masters set to the CPU's before each keyframe,
+    so that each keyframe's window solve starts from the same state on
+    both.  Checks each step's initial error (the residual chain on the same
+    state) at ``STEP_ERR_INIT_RTOL`` and its final error at
+    ``STEP_ERR_FINAL_RTOL``; prints how far the step's results lie apart
+    (LM runs a capped number of iterations on windows with near-flat
+    directions, where roundings move the state along them)."""
+    import srba_tpu_torch as port
+    from srba_tpu_torch.models.noise import NoiseIdentity
+
+    _, ds, model, sigma, _, engine_kw = cfg
+    engs = [port.SrbaEngine(model, noise=NoiseIdentity(sigma), device=dev,
+                            **engine_kw) for dev in ("cuda", "cpu")]
+    worst = {"err_init": 0.0, "err_final": 0.0, "state": 0.0}
+    forks = []
+    for k, frame in enumerate(ds.frames[:num_kfs]):
+        g, c = engs[0].device_master, engs[1].device_master
+        for a, b in ((g.pose, c.pose), (g.prior, c.prior), (g.lm, c.lm)):
+            a.copy_(b)
+        infos = []
+        for eng in engs:
+            info = eng.define_new_keyframe(
+                [port.Observation(lm_id=m, z=z) for m, z in frame],
+                edge_init={k - 1: ds.odometry[k - 1]} if k else None)
+            infos.append(info.optimize_results)
+        if k == 0:
+            continue   # the first keyframe has nothing to solve
+        ig, ic = ({key: float(v) for key, v in dict(i).items()}
+                  for i in infos)
+        for key in ("err_init", "err_final"):
+            worst[key] = max(worst[key], abs(ig[key] - ic[key]) / ic[key])
+        ne, nl = g.num_edges, g.num_lms
+        ds_k = max(float((g.pose[:ne].cpu() - c.pose[:ne]).abs().max()),
+                   float((g.lm[:nl].cpu() - c.lm[:nl]).abs().max()))
+        worst["state"] = max(worst["state"], ds_k)
+        if ds_k > CPU_AGREE_ATOL:
+            forks.append(f"KF {k}: {ds_k:.2e} (lam {ig['lam']:.0e} / "
+                         f"{ic['lam']:.0e}, err_final {ig['err_final']:.6e} "
+                         f"/ {ic['err_final']:.6e})")
+    log(f"{tag} lockstep, each KF's step from the same masters on the card "
+        f"and the CPU, first {num_kfs} KFs: max rel diff err_init "
+        f"{worst['err_init']:.3e} (rtol {STEP_ERR_INIT_RTOL}), err_final "
+        f"{worst['err_final']:.3e} (rtol {STEP_ERR_FINAL_RTOL}); max|state "
+        f"diff| after a step {worst['state']:.3e}; steps apart by more than "
+        f"{CPU_AGREE_ATOL}: {forks or 'none'}")
+    check(worst["err_init"] < STEP_ERR_INIT_RTOL
+          and worst["err_final"] < STEP_ERR_FINAL_RTOL,
+          f"{tag}: a window step on CUDA disagrees with the CPU's")
+
+
+def phase_config3_pgo(eng, cfg3, card: str, bl):
+    """Phase 13: config #3's terminal ``optimize_global()`` (chordal init,
+    pseudo-Huber 0.1, the pending weak fits flushed first) on phase 12's
+    timed engine, with its write-back.  Returns the kernel's launches per
+    block size."""
+    from srba_tpu_torch import Observation
+    from srba_tpu_torch.ops.np_lie import NpSE3
+    from srba_tpu_torch.utils.datasets import ate_rmse
+
+    t_phase = time.perf_counter()
+    world, ds = cfg3[0], cfg3[1]
+    G0, _ = eng.create_complete_spanning_tree(0)
+    ate_before = float(ate_rmse(G0[:, :3], world.gt_poses[:, :3]))
+    err_before = eng.eval_overall_squared_error()
+    reset_launch_counts(bl)
+    torch_sync()
+    with pgo_kernel_inputs() as stacks:
+        t0 = time.perf_counter()
+        G, info = eng.optimize_global()
+        torch_sync()
+        dt = time.perf_counter() - t0
+    by_shape = dict(bl.spd_inverse_cuda.launches_by_shape)
+    launches = launches_by_d(bl)
+    ate = float(ate_rmse(np.asarray(G)[:, :3], world.gt_poses[:, :3]))
+    err_after = eng.eval_overall_squared_error()
+    log(f"[13] config3 optimize_global() on {card}: {len(G)} nodes / "
+        f"{eng.state.num_edges} edges in {dt:.3f} s; err "
+        f"{info['err_init']:.6e} -> {info['err_final']:.6e}, "
+        f"converged={info['converged']:.0f} iters={info['iters']:.0f} "
+        f"cg_iters_total={info['cg_iters_total']:.0f} "
+        f"escalations={info['escalations']:.0f}")
+    log(f"[13] ATE {ate_before:.6f} -> {ate:.6f} m (bound "
+        f"{ATE_BOUND['config3']}), eval_overall_squared_error "
+        f"{err_before:.6e} -> {err_after:.6e}; spd_inverse kernel launches "
+        f"by [B, d]: {shapes(by_shape)}")
+    check(info["converged"] == 1.0, f"config3 PGO not certified: {info}")
+    check(ate <= ATE_BOUND["config3"], f"config3 PGO ATE {ate} > bound")
+    check(len(by_shape) == 1 and all(d == 6 and B >= len(G)
+                                     for B, d in by_shape)
+          and sum(by_shape.values()) == info["iters"] >= 1,
+          f"config3 PGO kernel shapes {by_shape}, expected [Kp, 6, 6] once "
+          "per LM iteration")
+    check_kernel_on("[13]", bl, stacks)
+    n = eng.num_keyframes
+    eng.define_new_keyframe(
+        [Observation(lm_id=m, z=z) for m, z in ds.frames[-1]],
+        edge_init={n - 1: NpSE3.identity()})
+    eng.fence()
+    check(eng.num_keyframes == n + 1 and bool(np.isfinite(
+        eng.eval_overall_squared_error())),
+        "config3: incremental step after the write-back failed")
+    log(f"[13] one more keyframe after the write-back: {eng.num_keyframes} "
+        "KFs, finite error")
+    log(f"[13] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def torch_sync() -> None:
     import torch
     torch.cuda.synchronize()
@@ -618,11 +854,12 @@ def main() -> int:
     # -- 3. kernel vs plain version on the card ------------------------------
     t_phase = time.perf_counter()
     max_err = 0.0
-    # The B of the paths: 64 (window buckets), 256 (config #4's PGO), 32768
-    # (pgo20k); others test odd and large stacks and the edges of a CTA's
-    # T blocks (T - 1, T + 1, 2T + 1).
+    # The B of the paths: 64 and 256 (window buckets), 256 (config #4's
+    # PGO), 512 (config #3's PGO), 32768 (pgo20k); others test odd and large
+    # stacks and the edges of a CTA's T blocks (T - 1, T + 1, 2T + 1).
     kernel_shapes = [(B, d) for d in (1, 2, 3, 6)
-                     for B in (1, 7, 300, 64, 256, 4096, 32768, 131072)]
+                     for B in (1, 7, 300, 64, 256, 512, 4096, 32768,
+                               131072)]
     kernel_shapes += [(B, d) for d, T in tiles.items()
                       for B in (T - 1, T + 1, 2 * T + 1)]
     for B, d in kernel_shapes:
@@ -740,6 +977,12 @@ def main() -> int:
     launches["config4_pgo"] = phase_config4_pgo(eng4, cfg4, card, bl)
     check_flags()
     phase_chordal(card)
+    check_flags()
+
+    # -- 12. config #3 end to end, 13. its global PGO ------------------------
+    launches["config3"], eng3, cfg3 = phase_config3(card, bl)
+    check_flags()
+    launches["config3_pgo"] = phase_config3_pgo(eng3, cfg3, card, bl)
     check_flags()
 
     # The main path's shape: config #1's Schur blocks.

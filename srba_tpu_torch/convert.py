@@ -16,6 +16,7 @@ import torch
 
 from srba_tpu_torch.engine.device_master import DeviceMaster
 from srba_tpu_torch.engine.state import ProblemState
+from srba_tpu_torch.models.observations import StereoCalib, calib_constants
 from srba_tpu_torch.solver.lm import SolverConfig, WindowBatch
 
 
@@ -24,18 +25,24 @@ def solver_config_from_jax(cfg) -> SolverConfig:
     return SolverConfig(**dataclasses.asdict(cfg))
 
 
-def window_batch_from_jax(jb, device="cpu") -> WindowBatch:
-    """JAX ``WindowBatch`` -> port ``WindowBatch`` on ``device``.  ``calib``
-    must be None (no calibrated model is ported); a scalar ``iters_cap``
-    becomes a host int."""
-    if jb.calib is not None:
-        raise NotImplementedError(
-            "calibrated observation models are not ported yet")
+def stereo_calib_from_jax(jc) -> StereoCalib:
+    """JAX ``StereoCalib`` (host numpy scalar leaves) -> the port's."""
+    return StereoCalib.make(fx=np.asarray(jc.fx), fy=np.asarray(jc.fy),
+                            cx=np.asarray(jc.cx), cy=np.asarray(jc.cy),
+                            baseline=np.asarray(jc.baseline))
+
+
+def window_batch_from_jax(jb, device="cuda") -> WindowBatch:
+    """JAX ``WindowBatch`` -> port ``WindowBatch`` on ``device``.  A
+    ``StereoCalib`` becomes the port's in its device form (Python floats);
+    a scalar ``iters_cap`` becomes a host int."""
     fields = {}
     for f in dataclasses.fields(WindowBatch):
         v = getattr(jb, f.name)
-        if f.name == "calib" or v is None:
+        if v is None:
             fields[f.name] = None
+        elif f.name == "calib":
+            fields[f.name] = calib_constants(stereo_calib_from_jax(v))
         elif f.name == "iters_cap":
             fields[f.name] = int(np.asarray(v))
         else:
@@ -54,7 +61,7 @@ def problem_state_from_jax(st) -> ProblemState:
     return out
 
 
-def device_master_from_jax(jdm, device="cpu") -> DeviceMaster:
+def device_master_from_jax(jdm, device="cuda") -> DeviceMaster:
     """JAX ``DeviceMaster`` (masters, row counts, staging, sequence
     counters) -> port ``DeviceMaster`` on ``device``.  A pending prefetch is
     dropped (the port's mirror then syncs by a blocking download)."""

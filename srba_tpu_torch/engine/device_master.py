@@ -21,6 +21,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from srba_tpu_torch.models.observations import calib_constants
 from srba_tpu_torch.solver.master import (INFO_KEYS, grow_master,
                                           make_append_only, make_master_step,
                                           pack_window_ints)
@@ -211,7 +212,8 @@ class DeviceMaster:
                 np.asarray(whitener, np.float32), device=self.device)
             self._spinv_dev = torch.as_tensor(
                 np.asarray(sensor_pose_inv, np.float32), device=self.device)
-            self._calib_dev = calib   # None for every ported model
+            # Python floats: kernel arguments, no per-step upload.
+            self._calib_dev = calib_constants(calib)
         fn = make_master_step(cfg)  # global per-config cache
         E, L, N = len(edge_ids), len(lm_ids), len(obs_lm)
         self.pose, self.prior, self.lm, info = fn(

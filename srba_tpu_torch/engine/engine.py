@@ -2,22 +2,28 @@
 :mod:`srba_tpu.engine.engine` (the reference's ``RbaEngine``).
 
 Ported so far: the device-master incremental path for landmark models with
-an inverse sensor model on SE(2) and SE(3), graph-SLAM mode (relative-pose
-observations of earlier keyframes as fixed pose landmarks, with a kf2kf
-edge to every observed keyframe beyond the tree depth), chain edge-creation
-policies and odometry/dead-reckoned edge seeds — what configs #1 (2D
-range-bearing SE(2)), #2 (3D range-bearing SE(3)) and #4 (relative-pose
-graph-SLAM) run — and the global-map entry points ``optimize_global`` (the
-global pose-graph optimization over all kf2kf edges, written back into the
-device masters) and ``bfs_visitor``.  ECP loop-closure edges, calibrated
-camera models, sensor mounting poses, monocular deferred triangulation and
-the host-window and mesh paths are not ported yet and raise by name;
-``refine_map`` is not ported yet.
+an inverse sensor model on SE(2) and SE(3) — range-bearing, Cartesian and
+stereo (with its calibration and an SE(3) sensor mount) — graph-SLAM mode
+(relative-pose observations of earlier keyframes as fixed pose landmarks,
+with a kf2kf edge to every observed keyframe beyond the tree depth), the
+chain and local-areas edge-creation policies with measurement-bootstrapped
+loop closures (:mod:`srba_tpu_torch.engine.closure`: strong fits become
+edges at once, weak ones wait for a stronger fit or age out, rejected areas
+cool down), odometry/dead-reckoned edge seeds, and the global-map entry
+points ``optimize_global`` (the global pose-graph optimization over all
+kf2kf edges, written back into the device masters) and ``bfs_visitor``.
+That is what configs #1 (2D range-bearing SE(2)), #2 (3D range-bearing
+SE(3)), #3 (stereo SE(3) with a camera mount, local areas, closures and a
+terminal global PGO) and #4 (relative-pose graph-SLAM) run.  The monocular
+and RGB-D models, monocular deferred triangulation and the host-window and
+mesh paths are not ported yet and raise by name; ``refine_map`` is not
+ported yet.
 
 Per keyframe the host does the integer work (allocation, edge-creation
-policy, spanning-tree paths, window selection) and the device runs ONE step
-over the padded window (:mod:`srba_tpu_torch.solver.master`); nothing is
-read back until a caller asks for state.
+policy, spanning-tree paths, window selection, closure fits on the host
+mirror) and the device runs ONE step over the padded window
+(:mod:`srba_tpu_torch.solver.master`); nothing is read back until a caller
+or a closure fit asks for state.
 """
 
 from __future__ import annotations
@@ -30,13 +36,15 @@ import numpy as np
 import torch
 
 from srba_tpu_torch.ecps import ClassicLinearRBA
+from srba_tpu_torch.engine.closure import bootstrap_closure_edge
 from srba_tpu_torch.engine.device_master import DeviceMaster
 from srba_tpu_torch.engine.state import ProblemState
 from srba_tpu_torch.graph.spantree import KeyframeGraph
 from srba_tpu_torch.models.landmarks import (LANDMARK_TYPES, Euclidean2D,
                                              Euclidean3D)
 from srba_tpu_torch.models.noise import NoiseIdentity
-from srba_tpu_torch.models.observations import OBSERVATION_MODELS
+from srba_tpu_torch.models.observations import (OBSERVATION_MODELS,
+                                                StereoCalib, calib_constants)
 from srba_tpu_torch.models.sensor_pose import SensorPoseNone
 from srba_tpu_torch.ops.np_lie import np_group_for
 from srba_tpu_torch.solver.lm import SolverConfig
@@ -50,8 +58,7 @@ class SrbaParams:
     """Runtime parameters — the fields of the JAX package's ``SrbaParams``
     (analog of the reference's ``TSRBAParameters``) that the ported path
     reads, with the same defaults; see there for each knob's rationale.
-    The loop-closure and monocular-front-end fields come with those
-    features."""
+    The monocular-front-end field comes with that feature."""
 
     max_tree_depth: int = 4
     max_optimize_depth: int = 4
@@ -59,6 +66,21 @@ class SrbaParams:
     kernel_param: float = 3.0
     verbose: int = 0
     extra_obs_per_lm_cap: Optional[int] = None
+    # Loop-closure bootstrap (engine/closure.py): closure edges start from a
+    # fit to the re-observed landmarks, not from drifted estimates.
+    closure_bootstrap: bool = True
+    # Pixel-RMS gate of the monocular fit (not ported yet).
+    closure_gate_px: float = 25.0
+    # A fit whose predicted worst-direction pose sigma is below this is
+    # STRONG (edge now); up to ``closure_accept_sigma_factor`` times it is
+    # WEAK (held pending, weighted 1/sigma^2); beyond, the area is deferred.
+    # None disables sigma gating.
+    closure_max_sigma: Optional[float] = 0.3
+    closure_accept_sigma_factor: float = 3.0
+    # Keyframes an area center is skipped after its fit hard-rejects.
+    closure_retry_cooldown: int = 4
+    # Keyframes a weak fit waits for a strong one before it becomes an edge.
+    closure_pending_flush_age: int = 8
     # Edge measurement priors: the edge's creation-time measured value
     # (odometry) kept as a weak factor of weight 1/sigma^2 in every window
     # solve (scaled down by hop count for dead-reckoned seeds).  None
@@ -69,11 +91,17 @@ class SrbaParams:
     # scale quadratically (clipped).
     closure_prior_sigma: float = 0.25
     # Staleness budget (optimization steps) of the host mirror behind the
-    # edge-seed cache, and the async prefetch cadence (every max_age/2).
+    # edge-seed cache and the closure fits, and the async prefetch cadence
+    # (every max_age/2).
     closure_mirror_max_age: int = 16
+    # Fits on a stale mirror whose gate ratio is <= this (every accept, by
+    # design) are redone against an exact sync before an edge goes in; far
+    # rejects are deferred without the blocking download.
+    closure_reverify_band: float = 2.0
     max_iters: int = 20
-    # Iteration cap of ordinary per-keyframe incremental steps (explicit
-    # optimize_local_area calls run ``max_iters``).
+    # Iteration cap of ordinary per-keyframe incremental steps
+    # (closure-active frames and explicit optimize_local_area calls run
+    # ``max_iters``).
     incremental_max_iters: int = 10
     lam0: float = 1e-4
     rel_tol: float = 1e-6
@@ -121,9 +149,10 @@ class SrbaEngine:
             raise NotImplementedError(
                 "host-window and mesh solves are not ported to "
                 "srba_tpu_torch yet (only the device-master path is)")
-        if calib is not None:
+        if calib is not None and not isinstance(calib, StereoCalib):
             raise NotImplementedError(
-                "calibrated observation models are not ported to "
+                "calibrated observation models other than StereoCamera "
+                f"(calib {type(calib).__name__}) are not ported to "
                 "srba_tpu_torch yet")
         self.model = lookup(OBSERVATION_MODELS, obs_model,
                             "observation model")
@@ -140,11 +169,11 @@ class SrbaEngine:
         self.noise = noise if noise is not None else NoiseIdentity(1.0)
         self.sensor_pose = (sensor_pose if sensor_pose is not None
                             else SensorPoseNone())
-        if not self.sensor_pose.is_identity:
-            raise NotImplementedError(
-                f"sensor pose {self.sensor_pose.name!r} is not ported to "
-                "srba_tpu_torch yet")
-        self.calib = None
+        # Host calibration (float32 numpy scalars: inverse-model landmark
+        # inits and closure fits) and its device form (Python floats).
+        self.calib = calib
+        self._calib_np = calib
+        self._calib_dev = calib_constants(calib)
         self.parameters = params if params is not None else SrbaParams()
         self.profiler = Profiler()
 
@@ -164,8 +193,10 @@ class SrbaEngine:
         self._whitener = np.asarray(
             self.noise.whitener(self.model.obs_dim), np.float32)
         sp = np.asarray(self.sensor_pose.pose_for(self.group), np.float32)
+        self._sensor_pose = sp
         self._sensor_pose_inv = np.asarray(self.np_group.inverse(sp),
                                            np.float32)
+        self._use_sensor_pose = not self.sensor_pose.is_identity
 
         # External feature id -> dense internal landmark index.
         self._lm_id_map: Dict[int, int] = {}
@@ -176,13 +207,23 @@ class SrbaEngine:
         # odometry: (num_kfs at build, G array, dist map).
         self._seed_cache = None
         self._seed_cache_max_age = 25
+        # Area centers whose last closure fit hard-rejected: center -> first
+        # keyframe id allowed to retry (SrbaParams.closure_retry_cooldown).
+        self._closure_cooldown: Dict[int, int] = {}
+        # Best WEAK closure fit per area center, held pending until a strong
+        # fit supersedes it or the flush age passes:
+        # center -> {sigma, T, info, kf, first_kf}.
+        self._closure_pending: Dict[int, Dict[str, Any]] = {}
+        # Step seq of the last accepted closure's refinement: a stale mirror
+        # is never accepted from before this point.
+        self._closure_barrier_seq = 0
 
         self._solver_cfg = SolverConfig(
             obs_model=self.model.name,
             pose_group=self.group.name,
             lm_type=self.lm_type.name,
             max_depth=self.parameters.max_tree_depth,
-            use_sensor_pose=False,
+            use_sensor_pose=self._use_sensor_pose,
             use_robust_kernel=self.parameters.use_robust_kernel,
             kernel_param=self.parameters.kernel_param,
             max_iters=self.parameters.max_iters,
@@ -196,9 +237,12 @@ class SrbaEngine:
     # ------------------------------------------------------------------
 
     def _add_edge(self, from_kf: int, to_kf: int, pose: np.ndarray,
-                  prior_w: float = 0.0) -> int:
-        e = self.state.add_edge(from_kf, to_kf, pose, prior_w=prior_w)
+                  prior_w: float = 0.0, sigma: float = 0.0,
+                  info=None) -> int:
+        e = self.state.add_edge(from_kf, to_kf, pose, prior_w=prior_w,
+                                sigma=sigma, info=info)
         self.device_master.stage_edge(pose, prior_w)
+        self.graph.add_edge(from_kf, to_kf)
         return e
 
     def _add_landmark(self, base_kf: int, st: np.ndarray,
@@ -210,9 +254,12 @@ class SrbaEngine:
     def sync(self, max_age: int = 0) -> None:
         """Refresh the host mirror of edge poses / landmark states from the
         device masters (one download; no-op when clean).  ``max_age``
-        accepts a mirror up to that many optimization steps stale."""
+        accepts a mirror up to that many optimization steps stale, though
+        never one from before the last accepted closure's refinement (the
+        barrier: after a closure the map moves wholesale)."""
         self.device_master.sync_to_host(
-            self.state.k2k_pose, self.state.lm_state, max_age=max_age)
+            self.state.k2k_pose, self.state.lm_state, max_age=max_age,
+            min_seq=self._closure_barrier_seq if max_age else 0)
 
     def fence(self) -> None:
         """Wait for all queued device work WITHOUT downloading state (use
@@ -251,12 +298,9 @@ class SrbaEngine:
                     primary_targets, closure_targets = out
                 else:  # user policy returning a flat list: all primary
                     primary_targets, closure_targets = list(out), []
-                if closure_targets:
-                    raise NotImplementedError(
-                        "loop-closure edges are not ported to "
-                        "srba_tpu_torch yet")
-                self._create_primary_edges(kf_id, primary_targets, edge_init,
-                                           info)
+                closure_created = self._create_edges(
+                    kf_id, primary_targets, closure_targets, edge_init,
+                    observations, info)
                 if self.model.is_pose_landmark:
                     self._create_graph_slam_edges(kf_id, observations, info)
 
@@ -273,31 +317,56 @@ class SrbaEngine:
 
             if run_local_optimization and kf_id > 0:
                 with prof.scope("optimize_local_area"):
+                    # A fresh closure edge is refined at the FULL tree depth,
+                    # whose window reaches the revisited area's landmarks on
+                    # both sides of the closure.
+                    depth = self.parameters.max_optimize_depth
+                    if closure_created:
+                        depth = max(depth, self.parameters.max_tree_depth)
+                    # Closure-ACTIVE frames (an edge was created OR the ECP
+                    # voted one, even if the fit deferred) run the full
+                    # budget (iteration cap 0 = max_iters).
+                    closure_active = closure_created or bool(closure_targets)
                     info.optimize_results = self.optimize_local_area(
-                        kf_id, self.parameters.max_optimize_depth,
-                        _iters_cap=self.parameters.incremental_max_iters)
+                        kf_id, depth,
+                        _iters_cap=(0 if closure_active else
+                                    self.parameters.incremental_max_iters))
             else:
                 # No solve this frame: still push staged rows to the device
                 # masters so they stay authoritative.
                 self.device_master.flush_append()
 
-            # Steady async prefetch cadence (internally throttled to every
-            # max_age/2 steps): a stale-tolerant consumer (the seed cache)
-            # takes an already-landed copy instead of a blocking download.
-            self.device_master.maybe_prefetch(
-                self.parameters.closure_mirror_max_age)
+            if closure_created:
+                # The refinement step just queued moves the map wholesale:
+                # raise the staleness barrier and start a post-closure
+                # prefetch now.
+                self._closure_barrier_seq = self.device_master.step_seq
+                self.device_master.maybe_prefetch(
+                    self.parameters.closure_mirror_max_age, force=True)
+            else:
+                # Steady async prefetch cadence (internally throttled to
+                # every max_age/2 steps): stale-tolerant consumers (closure
+                # fits, the seed cache) take an already-landed copy instead
+                # of a blocking download.
+                self.device_master.maybe_prefetch(
+                    self.parameters.closure_mirror_max_age)
         if self.parameters.verbose >= 1:
             print(f"[srba] kf={kf_id} edges+={len(info.created_edge_ids)} "
                   f"opt={info.optimize_results}")
         return info
 
-    def _create_primary_edges(self, kf_id: int, targets, edge_init,
-                              info: TNewKeyFrameInfo) -> None:
-        """Create the new keyframe's primary (local) edges and record its
-        dead-reckoned global pose.  Seeds: the given odometry
+    def _create_edges(self, kf_id: int, primary_targets, closure_targets,
+                      edge_init, observations,
+                      info: TNewKeyFrameInfo) -> bool:
+        """Create the new keyframe's primary (local) and loop-closure edges,
+        flush aged-out weak closure fits and record the keyframe's
+        dead-reckoned global pose.  Primary seeds: the given odometry
         (``edge_init``), else the dead-reckoned trajectory, else the
-        throttled optimized global estimate."""
+        throttled optimized global estimate.  Closure seeds: a fit to the
+        re-observed landmarks (``closure_bootstrap``).  Returns whether a
+        closure edge was created."""
         g = self.np_group
+        par = self.parameters
         # Dead-reckoned global estimate of the NEW keyframe, anchored by any
         # provided edge_init (odometry).
         G_dr_new = None
@@ -313,7 +382,9 @@ class SrbaEngine:
             # Edge stores T_new<-t;  G[new] = G[t] o inv(T).
             return np.asarray(g.compose(g.inverse(G_new), G_t), np.float32)
 
-        p_sigma = self.parameters.edge_prior_sigma
+        synced_for_boot = False
+        closure_created = False
+        p_sigma = par.edge_prior_sigma
         if self.model.is_pose_landmark:
             # Graph-SLAM mode: every observation IS a direct edge
             # measurement, so windows are never visually degenerate and an
@@ -321,33 +392,99 @@ class SrbaEngine:
             # observations (whose whitened weight the prior knows nothing
             # about).
             p_sigma = None
-        for t in targets:
-            # Prior weight: how much the seed is a MEASUREMENT.
-            prior_w = 0.0
-            if edge_init is not None and t in edge_init:
-                init = np.asarray(edge_init[t], np.float32)
-                if p_sigma:
-                    prior_w = 1.0 / (p_sigma * p_sigma)
-            elif G_dr_new is not None and t < len(self._G_dr):
-                # Local link: dead-reckoned seed.
-                init = _seed_from(G_dr_new, self._G_dr[t])
-                if p_sigma:
-                    # Composition of ~|kf-t| odometry steps: variance grows
-                    # linearly with hop count.
-                    hops = max(abs(kf_id - t), 1)
-                    prior_w = 1.0 / (p_sigma * p_sigma * hops)
-            else:
-                # No odometry anchor: seed from the optimized global
-                # estimate.
-                g_new = self._global_est_new(G_dr_new)
-                g_t = self._global_est(t)
-                if g_new is not None and g_t is not None:
-                    init = _seed_from(g_new, g_t)
+        for which, targets in (("primary", primary_targets),
+                               ("closure", closure_targets)):
+            for t in targets:
+                # Prior weight: how much the seed is a MEASUREMENT.
+                prior_w = 0.0
+                fit_info = None   # closure fit JtJ (anisotropic)
+                if edge_init is not None and t in edge_init:
+                    init = np.asarray(edge_init[t], np.float32)
+                    if p_sigma:
+                        prior_w = 1.0 / (p_sigma * p_sigma)
+                elif which == "primary" and G_dr_new is not None \
+                        and t < len(self._G_dr):
+                    # Local link: dead-reckoned seed.
+                    init = _seed_from(G_dr_new, self._G_dr[t])
+                    if p_sigma:
+                        # Composition of ~|kf-t| odometry steps: variance
+                        # grows linearly with hop count.
+                        hops = max(abs(kf_id - t), 1)
+                        prior_w = 1.0 / (p_sigma * p_sigma * hops)
                 else:
-                    init = g.identity()
-            e = self._add_edge(kf_id, t, init, prior_w=prior_w)
-            self.graph.add_edge(kf_id, t)
-            info.created_edge_ids.append(e)
+                    # Distant re-visit (or no odometry anchor): seed from the
+                    # optimized global estimate.
+                    g_new = self._global_est_new(G_dr_new)
+                    g_t = self._global_est(t)
+                    if g_new is not None and g_t is not None:
+                        init = _seed_from(g_new, g_t)
+                    else:
+                        init = g.identity()
+                sigma = 0.0
+                if which == "closure" and par.closure_bootstrap:
+                    if kf_id < self._closure_cooldown.get(t, 0):
+                        continue   # recently hard-rejected: defer
+                    pend = self._closure_pending.get(t)
+                    if pend is not None and G_dr_new is not None \
+                            and pend["kf"] < len(self._G_dr):
+                        # The cached weak fit is the best seed: compose it
+                        # forward by the few-frame dead-reckoned delta.
+                        init = np.asarray(g.compose(
+                            _seed_from(G_dr_new, self._G_dr[pend["kf"]]),
+                            pend["T"]), np.float32)
+                    with self.profiler.scope("closure_bootstrap"):
+                        status, T, sigma, fit_info, synced_for_boot = \
+                            self._fit_closure(t, observations, init,
+                                              synced_for_boot)
+                    if status == "ok":
+                        init = np.asarray(T, np.float32)
+                        # Measured-covariance weighting: the fit's own sigma
+                        # (floored at the odometry-grade edge_prior_sigma)
+                        # sets the prior weight.
+                        sigma = max(float(sigma),
+                                    par.edge_prior_sigma or 0.05)
+                        if p_sigma:
+                            prior_w = 1.0 / (sigma * sigma)
+                        self._closure_pending.pop(t, None)
+                    elif status == "weak":
+                        # Cache the best weak fit; it becomes an edge only
+                        # if no strong fit arrives (flush below).
+                        if pend is None or sigma < pend["sigma"]:
+                            self._closure_pending[t] = {
+                                "sigma": float(sigma),
+                                "T": np.asarray(T, np.float32),
+                                "info": fit_info,
+                                "kf": kf_id,
+                                "first_kf": (pend or {}).get("first_kf",
+                                                             kf_id)}
+                        continue      # defer edge creation
+                    elif status == "reject":
+                        self._closure_cooldown[t] = (
+                            kf_id + par.closure_retry_cooldown)
+                        continue      # defer: the ECP re-votes later
+                    else:
+                        sigma = 0.0   # n/a: estimate-based seed
+                e = self._add_edge(kf_id, t, init, prior_w=prior_w,
+                                   sigma=sigma, info=fit_info)
+                info.created_edge_ids.append(e)
+                if which == "closure":
+                    closure_created = True
+                    # An edge to this center now exists: a pending weak fit
+                    # must not flush a duplicate later.
+                    self._closure_pending.pop(t, None)
+
+        # Flush aged-out pending weak closures: no strong fit arrived within
+        # the flush window, so the best weak fit becomes the edge, valued at
+        # its own fit and weighted by its sigma.  Edge endpoints are
+        # (kf_at_fit, center); the graph is append-only, so an edge at a
+        # slightly older keyframe is always valid.
+        if self._closure_pending:
+            age = par.closure_pending_flush_age
+            for c in [c for c, r in self._closure_pending.items()
+                      if kf_id - r["first_kf"] >= age]:
+                info.created_edge_ids.append(
+                    self._add_pending_closure(c, p_sigma))
+                closure_created = True
 
         # Record the new KF's dead-reckoned global pose: prefer the odometry
         # anchor; else derive from the first created edge.
@@ -359,6 +496,76 @@ class SrbaEngine:
                                      g.inverse(self.state.k2k_pose[e0]))
         self._G_dr.append(G_dr_new if G_dr_new is not None
                           else np.asarray(g.identity(), np.float32))
+        return closure_created
+
+    def _fit_closure(self, center: int, observations, init, synced: bool):
+        """One closure fit to ``center`` (engine/closure.py) on a loosely
+        fresh mirror (at most ``closure_mirror_max_age`` steps old, synced
+        once per frame); a fit that passes or nearly passes is redone on the
+        exact device state before anyone acts on it.  Returns ``(status, T,
+        sigma, info, synced)``.  Counts each fit's outcome and each
+        re-verifying download in the profiler (``closure_<status>``,
+        ``closure_reverify_syncs``)."""
+        par = self.parameters
+        voters = self._closure_voters(observations, center)
+        if voters and not synced:
+            # A reject on slightly stale data just re-votes next frame, so
+            # no blocking download is spent here.
+            self.sync(max_age=par.closure_mirror_max_age)
+            synced = True
+        status, T, ratio, sigma, fit_info = bootstrap_closure_edge(
+            self, center, voters, init)
+        if self.device_master.dirty and status != "n/a" \
+                and ratio <= par.closure_reverify_band:
+            # Fresh voter positions flip marginal outcomes in BOTH
+            # directions, so accepts, weaks and near rejects all re-verify
+            # against the exact state (one blocking download); far rejects
+            # cost nothing.
+            self.profiler.count("closure_reverify_syncs")
+            self.sync()
+            status, T, ratio, sigma, fit_info = bootstrap_closure_edge(
+                self, center, voters, init)
+        self.profiler.count(f"closure_{status}")
+        return status, T, sigma, fit_info, synced
+
+    def _add_pending_closure(self, center: int, p_sigma) -> int:
+        """Turn the pending weak fit to ``center`` into its edge (counted
+        as ``closure_flushed``)."""
+        self.profiler.count("closure_flushed")
+        rec = self._closure_pending.pop(center)
+        sig = max(rec["sigma"], self.parameters.edge_prior_sigma or 0.05)
+        return self._add_edge(
+            rec["kf"], center, rec["T"],
+            prior_w=(1.0 / (sig * sig) if p_sigma else 0.0),
+            sigma=sig, info=rec.get("info"))
+
+    def flush_pending_closures(self) -> int:
+        """Materialize every still-pending weak closure fit now (normally
+        they flush after ``closure_pending_flush_age`` keyframes; call this
+        before a terminal global refinement so fits cached near the end of
+        a sequence are not lost).  Returns the number of edges created.
+        ``optimize_global`` calls it first."""
+        n = 0
+        for c in list(self._closure_pending):
+            self._add_pending_closure(c, self.parameters.edge_prior_sigma)
+            n += 1
+        return n
+
+    def _closure_voters(self, observations, center: int):
+        """Re-observed landmarks usable to bootstrap a closure edge to
+        ``center``: known landmarks whose base KF is reachable from the
+        center within the tree depth."""
+        out = []
+        depth = self.parameters.max_tree_depth
+        for o in observations:
+            lm = self._lm_id_map.get(o.lm_id)
+            if lm is None:
+                continue
+            base = int(self.state.lm_base[lm])
+            if base == center or self.graph.path(
+                    center, base, depth) is not None:
+                out.append((lm, np.asarray(o.z, np.float32)))
+        return out
 
     def _create_graph_slam_edges(self, kf_id: int, observations,
                                  info: TNewKeyFrameInfo) -> None:
@@ -374,7 +581,6 @@ class SrbaEngine:
             if self.graph.path(kf_id, j,
                                self.parameters.max_tree_depth) is None:
                 e = self._add_edge(kf_id, j, np.asarray(o.z, np.float32))
-                self.graph.add_edge(kf_id, j)
                 info.created_edge_ids.append(e)
 
     def _seed_globals(self):
@@ -462,14 +668,22 @@ class SrbaEngine:
         zs = np.stack([np.asarray(observations[i].z, np.float32)
                        for i in idxs])
         # Numpy-in -> numpy-out inverse model (host path, no device hop).
-        pts = np.asarray(self.model.inverse(zs, None), np.float32)
+        pts = np.asarray(self.model.inverse(zs, self._calib_np), np.float32)
+        if self._use_sensor_pose and not self.model.is_pose_landmark:
+            pts = self.np_group.apply(self._sensor_pose, pts)
         return {i: pts[j] for j, i in enumerate(idxs)}
 
     def _init_landmark(self, z: np.ndarray, init_rel_pos) -> np.ndarray:
         if init_rel_pos is not None:
             return np.asarray(init_rel_pos, np.float32)
-        # Inverse model gives the landmark in the sensor (= keyframe) frame.
-        return np.asarray(self.model.inverse(z, None), np.float32)
+        # Inverse model gives the landmark in the SENSOR frame; map it into
+        # the base-KF (robot) frame through the mounting pose.
+        pt = np.asarray(self.model.inverse(z, self._calib_np), np.float32)
+        if self.model.is_pose_landmark:
+            return pt
+        if self._use_sensor_pose:
+            pt = self.np_group.apply(self._sensor_pose, pt)
+        return pt.astype(np.float32)
 
     # ------------------------------------------------------------------
     # Optimization
@@ -614,8 +828,7 @@ class SrbaEngine:
             raise NotImplementedError(
                 "optimize_global(mesh=...) (the edge-sharded PGO) is not "
                 "ported to srba_tpu_torch yet")
-        # No ported path holds a pending weak closure to flush first: that
-        # arrives with the closure bootstrap (ROADMAP queue 1, config #3).
+        self.flush_pending_closures()
         self.device_master.flush_append()
         prob = get_global_graphslam_problem(
             self, with_edge_info=use_edge_info)  # syncs internally
@@ -672,7 +885,10 @@ class SrbaEngine:
         if self.model.is_pose_landmark:
             pred = self.group.compose(dev(T), lm)
         else:
-            pred = self.model.h(self.group.apply(dev(T), lm), self.calib)
+            pt = self.group.apply(dev(T), lm)
+            if self._use_sensor_pose:
+                pt = self.group.apply(dev(self._sensor_pose_inv), pt)
+            pred = self.model.h(pt, self._calib_dev)
         r = self.model.residual(pred, dev(self.state.obs_z[:nobs])) \
             @ dev(self._whitener).T
         err = torch.sum(torch.sum(r * r, dim=-1) * dev(reachable))

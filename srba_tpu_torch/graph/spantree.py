@@ -131,6 +131,13 @@ class KeyframeGraph:
         steps.reverse()
         return steps
 
+    def distance(self, src: int, dst: int,
+                 max_depth: Optional[int] = None) -> Optional[int]:
+        """Hop count ``src -> dst`` over the bounded BFS tree, or ``None``
+        if ``dst`` lies beyond ``max_depth``."""
+        dist, _ = self.bfs_tree(src, max_depth)
+        return dist.get(dst)
+
     def window(self, root: int, depth: int) -> List[int]:
         """All KFs within ``depth`` hops of ``root`` (the local-optimization
         window of ``optimize_local_area``), in deterministic BFS order."""

@@ -8,5 +8,10 @@ from srba_tpu_torch.models.observations import (  # noqa: F401
     RangeBearing3D,
     RelativePoses2D,
     RelativePoses3D,
+    StereoCalib,
+    StereoCamera,
 )
-from srba_tpu_torch.models.sensor_pose import SensorPoseNone  # noqa: F401
+from srba_tpu_torch.models.sensor_pose import (  # noqa: F401
+    SensorPoseNone,
+    SensorPoseSE3,
+)

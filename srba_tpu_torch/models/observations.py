@@ -1,6 +1,7 @@
 """Observation (sensor) models — port of :mod:`srba_tpu.models.observations`
-(so far the range-bearing, Cartesian and relative-pose models; the camera
-models raise by name through the ``OBSERVATION_MODELS`` lookup).
+(so far the range-bearing, Cartesian, stereo-camera and relative-pose
+models; the monocular and RGB-D cameras raise by name through the
+``OBSERVATION_MODELS`` lookup).
 
 As in the JAX package, ``h``/``residual`` take the landmark already
 expressed in the sensor frame (path composition happens in the solver; for
@@ -11,14 +12,23 @@ angle wrap has derivative 1).  The point models' functions are
 namespace-generic: numpy in gives numpy out (dataset generation and
 inverse-model landmark init stay on the host, bit-identical to the JAX
 package's numpy path), torch in gives torch out (the solver).
+
+A calibration (:class:`StereoCalib`) holds float32 numpy scalars for the
+host path; the torch path takes it as Python floats
+(:func:`calib_constants`): a float reaches a kernel as an argument and
+enters the arithmetic as float32, with no host->device copy, while a numpy
+scalar times a CUDA tensor is not a safe mix.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from srba_tpu_torch.ops.lie import SE2, SE3
+from srba_tpu_torch.ops.lie import SE2, SE3, _tie_derivative
 
 
 def _xp(a):
@@ -29,6 +39,36 @@ def _xp(a):
 
 def _wrap(xp, theta):
     return xp.arctan2(xp.sin(theta), xp.cos(theta))
+
+
+@dataclass(frozen=True)
+class StereoCalib:
+    """Rectified stereo calibration (analog of the reference's
+    ``TStereoCamera``): identical left/right pinholes separated along +x by
+    ``baseline``.  :meth:`make` stores float32 numpy scalars, the values of
+    the JAX package's ``StereoCalib.make``."""
+
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    baseline: float
+
+    @staticmethod
+    def make(fx=200.0, fy=200.0, cx=160.0, cy=120.0, baseline=0.12,
+             dtype=np.float32):
+        return StereoCalib(fx=dtype(fx), fy=dtype(fy), cx=dtype(cx),
+                           cy=dtype(cy), baseline=dtype(baseline))
+
+
+def calib_constants(calib):
+    """``calib`` with every field a Python float (the form the torch path
+    takes; see the module docstring), or None."""
+    if calib is None:
+        return None
+    return dataclasses.replace(calib, **{
+        f.name: float(getattr(calib, f.name))
+        for f in dataclasses.fields(calib)})
 
 
 # Small positive floor to keep divisions/atan2 well-defined on padded
@@ -182,6 +222,60 @@ class RangeBearing3D(_PointObs):
         )
 
 
+class StereoCamera(_PointObs):
+    """Rectified stereo pair, obs = (ul, vl, ur, vr); right camera at
+    (+baseline, 0, 0) in the left-camera (sensor) frame, which looks along
+    +z."""
+
+    name = "StereoCamera"
+    obs_dim = 4
+    z_dim = 4
+    lm_dim = 3
+    pose_group = SE3
+
+    @staticmethod
+    def h(lm_in_sensor, calib: StereoCalib):
+        xp = _xp(lm_in_sensor)
+        x, y, zc = (lm_in_sensor[..., 0], lm_in_sensor[..., 1],
+                    lm_in_sensor[..., 2])
+        inv_z = 1.0 / (np.maximum(zc, 1e-4) if xp is np
+                       else torch.clamp_min(zc, 1e-4))
+        ul = calib.cx + calib.fx * x * inv_z
+        vl = calib.cy + calib.fy * y * inv_z
+        ur = calib.cx + calib.fx * (x - calib.baseline) * inv_z
+        vr = vl
+        return xp.stack([ul, vl, ur, vr], axis=-1)
+
+    @staticmethod
+    def h_jvp(pt, dpt, calib: StereoCalib):
+        """``h`` and its forward-mode tangent (torch; ``dpt [..., 3, K]``).
+        The depth floor ``max(zc, 1e-4)`` has derivative 0.5 at the tie, as
+        JAX's AD takes it."""
+        pred = StereoCamera.h(pt, calib)
+        x, y, zc = pt[..., 0:1], pt[..., 1:2], pt[..., 2:3]
+        dx, dy, dz = dpt[..., 0, :], dpt[..., 1, :], dpt[..., 2, :]
+        m = torch.clamp_min(zc, 1e-4)
+        inv_z = 1.0 / m
+        # d(1/m) = -dm / m^2, dm = dz * (derivative of the floor).
+        dinv = -(dz * _tie_derivative(zc, 1e-4, above=True)) / (m * m)
+        dul = calib.fx * (dx * inv_z + x * dinv)
+        dvl = calib.fy * (dy * inv_z + y * dinv)
+        dur = calib.fx * (dx * inv_z + (x - calib.baseline) * dinv)
+        return pred, torch.stack(torch.broadcast_tensors(dul, dvl, dur, dvl),
+                                 dim=-2)
+
+    @staticmethod
+    def inverse(z, calib: StereoCalib):
+        xp = _xp(z)
+        d = z[..., 0] - z[..., 2]
+        disparity = (np.maximum(d, 1e-3) if xp is np
+                     else torch.clamp_min(d, 1e-3))
+        depth = calib.fx * calib.baseline / disparity
+        x = (z[..., 0] - calib.cx) / calib.fx * depth
+        y = (z[..., 1] - calib.cy) / calib.fy * depth
+        return xp.stack([x, y, depth], axis=-1)
+
+
 class _RelativePoses:
     """Graph-SLAM mode: the 'landmark' is another keyframe's relative pose
     and the observation a measured relative pose; the solver composes the
@@ -236,5 +330,5 @@ class RelativePoses3D(_RelativePoses):
 OBSERVATION_MODELS = {
     m.name: m
     for m in [Cartesian2D, Cartesian3D, RangeBearing2D, RangeBearing3D,
-              RelativePoses2D, RelativePoses3D]
+              StereoCamera, RelativePoses2D, RelativePoses3D]
 }

@@ -1,14 +1,13 @@
 """Host-side (numpy) SE(2)/SE(3) operations — a copy of
-:mod:`srba_tpu.ops.np_lie` without the camera-mounting helpers
-(``quat_from_matrix``, ``CAMERA_SENSOR_POSE_SE3``), which come with the
-camera models; importing that module would pull in JAX through
-``srba_tpu/__init__.py``.
+:mod:`srba_tpu.ops.np_lie` (importing that module would pull in JAX through
+``srba_tpu/__init__.py``).
 
 The engine's host bookkeeping (dead-reckoned seeds, global-map recovery,
-landmark init) composes a handful of poses at a time; these are the same
-formulas as :mod:`srba_tpu_torch.ops.lie` on numpy arrays, so no tiny op
-ever becomes a device launch.  ``tests/test_torch_lie.py`` pins them against
-the JAX package's numpy mirror.
+landmark init, the loop-closure fits) composes a handful of poses at a
+time; these are the same formulas as :mod:`srba_tpu_torch.ops.lie` on numpy
+arrays, so no tiny op ever becomes a device launch.
+``tests/test_torch_lie.py`` pins them against the JAX package's numpy
+mirror, ``CAMERA_SENSOR_POSE_SE3`` bit for bit.
 """
 
 from __future__ import annotations
@@ -72,6 +71,40 @@ def quat_log(q):
     vn = np.maximum(np.linalg.norm(q[..., 1:], axis=-1, keepdims=True), 1e-12)
     angle = 2.0 * np.arctan2(vn, w)
     return (angle / vn) * q[..., 1:]
+
+
+def quat_from_matrix(R):
+    """Rotation matrix (3x3) -> unit quaternion (w, x, y, z), single pose."""
+    R = np.asarray(R, np.float64)
+    t = np.trace(R)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        w = 0.25 * s
+        x = (R[2, 1] - R[1, 2]) / s
+        y = (R[0, 2] - R[2, 0]) / s
+        z = (R[1, 0] - R[0, 1]) / s
+    else:
+        i = int(np.argmax(np.diag(R)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = np.sqrt(R[i, i] - R[j, j] - R[k, k] + 1.0) * 2
+        q = np.zeros(4)
+        q[1 + i] = 0.25 * s
+        q[0] = (R[k, j] - R[j, k]) / s
+        q[1 + j] = (R[j, i] + R[i, j]) / s
+        q[1 + k] = (R[k, i] + R[i, k]) / s
+        w, x, y, z = q
+    return quat_normalize(np.asarray([w, x, y, z]))
+
+
+# Camera mounting: robot frame is x-forward/y-left/z-up; camera frame is
+# z-forward/x-right/y-down.  ``CAMERA_SENSOR_POSE_SE3`` is the camera pose on
+# the robot (T_robot<-camera) in 7-vector storage — pass it as the engine's
+# ``SensorPoseSE3`` for camera observation models.
+_R_ROBOT_FROM_CAM = np.asarray([[0.0, 0.0, 1.0],
+                                [-1.0, 0.0, 0.0],
+                                [0.0, -1.0, 0.0]])
+CAMERA_SENSOR_POSE_SE3 = np.concatenate(
+    [np.zeros(3), quat_from_matrix(_R_ROBOT_FROM_CAM)]).astype(np.float32)
 
 
 class NpSE2:

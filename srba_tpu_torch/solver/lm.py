@@ -72,7 +72,9 @@ class WindowBatch:
     obs_valid: torch.Tensor   # [N] 1.0 = real observation
     whitener: torch.Tensor    # [od, od] Lambda^{1/2} noise whitening
     sensor_pose_inv: torch.Tensor  # [pose_dim] inverse sensor mounting pose
-    calib: Any = None         # observation-model calibration (None so far)
+    # Observation-model calibration with Python-float fields
+    # (models.observations.calib_constants), or None.
+    calib: Any = None
     # Optional per-edge measurement priors: residual
     # sqrt(w) * plog(inv(prior) o edge) per opt edge.  None = no priors.
     edge_prior: Optional[torch.Tensor] = None     # [E, pose_dim]
@@ -126,10 +128,6 @@ def _resolve(cfg: SolverConfig):
     if cfg.axis_name is not None:
         raise NotImplementedError(
             "observation-sharded (axis_name) solves are not ported to "
-            "srba_tpu_torch yet")
-    if cfg.use_sensor_pose:
-        raise NotImplementedError(
-            "sensor mounting poses (use_sensor_pose) are not ported to "
             "srba_tpu_torch yet")
     return (lookup(GROUPS, cfg.pose_group, "pose group"),
             lookup(OBSERVATION_MODELS, cfg.obs_model, "observation model"),
@@ -187,11 +185,16 @@ def make_linearize(cfg: SolverConfig):
         if model.is_pose_landmark:
             # graph-SLAM: compose with the landmark pose, don't project
             pred, dpred = group.compose_jvp(T, lm, dT, dlm)
-        elif basis is None:
-            pred = model.h(group.apply(T, lm), b.calib)
         else:
             pt, dpt = group.apply_jvp(T, lm, dT, dlm)
-            pred, dpred = model.h_jvp(pt, dpt, b.calib)
+            if cfg.use_sensor_pose:
+                # Into the sensor frame; the mount is a constant (no
+                # tangent of its own).
+                pt, dpt = group.apply_jvp(b.sensor_pose_inv, pt, None, dpt)
+            if basis is None:
+                pred = model.h(pt, b.calib)
+            else:
+                pred, dpred = model.h_jvp(pt, dpt, b.calib)
         if basis is None:
             r = model.residual(pred, b.obs_z)
             return r @ b.whitener.T, None   # whitener @ r, per observation

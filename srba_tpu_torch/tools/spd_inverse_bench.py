@@ -42,10 +42,11 @@ L2_BYTES = 50 * 1024 * 1024
 # Where the HBM bound is under this, the launch (~2 us) dominates and no
 # share of the bound is stated.
 LAUNCH_BOUND_US = 0.5
-# chip_smoke.py phase 3's shapes: the keyframe path's Schur blocks,
-# config #4's PGO, a large window's blocks and the PGO stacks.
-SHAPES = ((64, 2), (64, 3), (256, 3), (4096, 2), (32768, 3), (32768, 6),
-          (131072, 3), (131072, 6))
+# chip_smoke.py phase 3's shapes: the keyframe path's Schur blocks (config
+# #3's windows reach L = 256), config #4's and config #3's PGO, a large
+# window's blocks and the PGO stacks.
+SHAPES = ((64, 2), (64, 3), (256, 3), (512, 6), (4096, 2), (32768, 3),
+          (32768, 6), (131072, 3), (131072, 6))
 
 
 def bound_us(B: int, d: int) -> float:

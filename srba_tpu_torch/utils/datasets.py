@@ -1,17 +1,17 @@
 """Synthetic world / dataset generation and trajectory metrics — the port of
 :mod:`srba_tpu.utils.datasets` as far as the ported models go
 (``make_world_loop_2d``, ``make_world_loop_3d``, ``observe`` for the
-range-bearing and Cartesian models, ``make_graph_slam_dataset``,
-``umeyama_align``, ``ate_rmse``; the camera branch of ``observe``,
-``observe_sparse`` and ``make_world_loop_3d_large`` come with the camera
-models).
+range-bearing, Cartesian and stereo-camera models,
+``make_graph_slam_dataset``, ``umeyama_align``, ``ate_rmse``;
+``observe_sparse`` and ``make_world_loop_3d_large`` come with the monocular
+camera).
 
 Everything here is numpy on the host.  Observation values come from the
 model's ``h`` on numpy input (numpy in, numpy out), the same formulas and
 the same numpy calls as the JAX package's host path, so the same seed gives
-bit-identical datasets in both packages (``tests/test_torch_e2e_rb2d.py``
-and ``tests/test_torch_e2e_rb3d.py`` / ``test_torch_e2e_graphslam.py`` check
-it).
+bit-identical datasets in both packages (``tests/test_torch_e2e_rb2d.py``,
+``test_torch_e2e_rb3d.py``, ``test_torch_e2e_graphslam.py`` and
+``test_torch_e2e_stereo.py`` check it).
 """
 
 from __future__ import annotations
@@ -88,12 +88,27 @@ def make_world_loop_3d(num_kfs: int = 100, radius: float = 10.0,
     return World("SE3", gt, lms)
 
 
+def _camera_frame(pts_robot: np.ndarray) -> np.ndarray:
+    """Robot frame (x fwd, y left, z up) -> camera frame (z fwd, x right,
+    y down), the frame camera observations are generated in."""
+    x, y, z = pts_robot[..., 0], pts_robot[..., 1], pts_robot[..., 2]
+    return np.stack([-y, -z, x], axis=-1)
+
+
+CAMERA_MODELS = ("MonocularCamera", "StereoCamera", "RGBDCamera")
+
+
 def observe(world: World, obs_model: str, calib: Any = None,
             noise_std: float = 0.0, sensor_range: float = 6.0,
+            image_size: Tuple[int, int] = (320, 240),
+            min_depth: float = 0.3, camera_frame_convention: bool = True,
             seed: int = 0, odo_noise_std: float = 0.0) -> SlamDataset:
     """Generate per-keyframe observations + odometry for ``world`` under the
-    given (range-gated) observation model.  ``calib`` must be None: the
-    calibrated (camera) models are not ported yet."""
+    given observation model.  Visibility: range gate for range/Cartesian
+    models; for cameras the frustum gate (depth above ``min_depth``, pixels
+    inside ``image_size``, the right image too for 4-d stereo
+    observations) and the range gate.  ``calib`` is the camera's
+    calibration (float32 numpy scalars)."""
     model = lookup(OBSERVATION_MODELS, obs_model, "observation model")
     group = lookup(NP_GROUPS, world.group_name, "pose group")
     rng = np.random.default_rng(seed + 1)
@@ -103,9 +118,24 @@ def observe(world: World, obs_model: str, calib: Any = None,
     # Landmarks in every robot frame: [K, M, pd].
     inv_poses = group.inverse(world.gt_poses)            # [K, pose_dim]
     pts = group.apply(inv_poses[:, None, :], world.landmarks[None, :, :])
-    zs = np.asarray(model.h(np.asarray(pts.reshape(K * M, -1), np.float32),
-                            calib), np.float32).reshape(K, M, -1)
-    vis = np.linalg.norm(pts, axis=-1) < sensor_range
+
+    if obs_model in CAMERA_MODELS:
+        cam_pts = _camera_frame(pts) if camera_frame_convention else pts
+        zs = np.asarray(model.h(np.asarray(cam_pts.reshape(K * M, -1),
+                                           np.float32), calib),
+                        np.float32).reshape(K, M, -1)
+        w, h = image_size
+        vis = (cam_pts[..., 2] > min_depth)
+        vis &= (zs[..., 0] >= 0) & (zs[..., 0] < w)
+        vis &= (zs[..., 1] >= 0) & (zs[..., 1] < h)
+        if model.obs_dim == 4:
+            vis &= (zs[..., 2] >= 0) & (zs[..., 2] < w)
+        vis &= np.linalg.norm(cam_pts, axis=-1) < sensor_range
+    else:
+        zs = np.asarray(model.h(np.asarray(pts.reshape(K * M, -1),
+                                           np.float32), calib),
+                        np.float32).reshape(K, M, -1)
+        vis = np.linalg.norm(pts, axis=-1) < sensor_range
 
     noise = rng.normal(0.0, noise_std, zs.shape).astype(np.float32)
     zs = zs + noise

@@ -271,3 +271,148 @@ def test_pgo_on_cuda_matches_cpu_and_repeats_bitwise(cuda, group, d):
     assert info["err_final"] == pytest.approx(ic["err_final"], rel=1e-3)
     G2, _ = optimize_global_pose_graph(prob, cfg, device=cuda)
     assert np.array_equal(G, G2)
+
+
+def _stereo_window(device, n_kfs=10):
+    """A depth-3 window of the mounted-stereo map of tests/test_torch_solver
+    .py, built by the port's engine on the CPU (edges at their odometry
+    seeds), as a ``WindowBatch`` on ``device``."""
+    import srba_tpu_torch as port
+    from srba_tpu_torch.models.noise import NoiseIdentity
+    from srba_tpu_torch.models.observations import (StereoCalib,
+                                                    calib_constants)
+    from srba_tpu_torch.models.sensor_pose import SensorPoseSE3
+    from srba_tpu_torch.ops.np_lie import CAMERA_SENSOR_POSE_SE3
+    from srba_tpu_torch.solver.lm import WindowBatch
+    from srba_tpu_torch.solver.window import build_window
+    from srba_tpu_torch.utils import datasets as tds
+    calib = StereoCalib.make(fx=200.0, fy=200.0, cx=160.0, cy=120.0,
+                             baseline=0.12)
+    world = tds.make_world_loop_3d(num_kfs=20, radius=6.0, num_landmarks=150,
+                                   height_amp=0.5, seed=8)
+    ds = tds.observe(world, "StereoCamera", calib=calib, noise_std=0.3,
+                     sensor_range=8.0, odo_noise_std=0.02, seed=8)
+    eng = port.SrbaEngine(
+        "StereoCamera", calib=calib, noise=NoiseIdentity(0.3),
+        sensor_pose=SensorPoseSE3(CAMERA_SENSOR_POSE_SE3),
+        params=port.SrbaParams(max_tree_depth=3, max_optimize_depth=3),
+        device="cpu")
+    for k, frame in enumerate(ds.frames[:n_kfs]):
+        eng.define_new_keyframe(
+            [port.Observation(lm_id=m, z=z) for m, z in frame],
+            run_local_optimization=False,
+            edge_init={k - 1: ds.odometry[k - 1]} if k else None)
+    eng.sync()
+    arrays, _ = build_window(eng.state, eng.graph, n_kfs - 1, 3, 3)
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    batch = WindowBatch(
+        edge_pose=dev(arrays.edge_pose), edge_opt=dev(arrays.edge_opt),
+        lm_state=dev(arrays.lm_state), lm_opt=dev(arrays.lm_opt),
+        obs_z=dev(arrays.obs_z), obs_lm=dev(arrays.obs_lm, torch.int32),
+        path_edge=dev(arrays.path_edge, torch.int32),
+        path_sign=dev(arrays.path_sign), obs_valid=dev(arrays.obs_valid),
+        whitener=dev(eng._whitener), sensor_pose_inv=dev(eng._sensor_pose_inv),
+        calib=calib_constants(calib),
+        edge_prior=dev(arrays.edge_prior),
+        edge_prior_w=dev(arrays.edge_prior_w))
+    return eng._solver_cfg, batch
+
+
+def test_stereo_window_solve_on_cuda_matches_cpu(cuda):
+    """The mounted-stereo window's LM solve on the card against the CPU
+    (state atol 1e-3, errors rel 1e-3: the stereo tolerances of
+    tests/test_torch_solver.py), through the kernel at block size 3."""
+    import dataclasses
+
+    from srba_tpu_torch.solver.lm import make_lm_solver
+    cfg, bg = _stereo_window(cuda)
+    _, bc = _stereo_window("cpu")
+    cfg = dataclasses.replace(cfg, rel_tol=0.05)
+    n0 = _launches(3)
+    eg, lg, ig = make_lm_solver(cfg, device=cuda)[0](bg)
+    assert _launches(3) > n0 and eg.is_cuda
+    ec, lc, ic = make_lm_solver(cfg, device="cpu")[0](bc)
+    np.testing.assert_allclose(eg.cpu().numpy(), ec.numpy(), atol=1e-3)
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), atol=1e-3)
+    for k in ("err_init", "err_final"):
+        assert float(ig[k]) == pytest.approx(float(ic[k]), rel=1e-3)
+    assert float(ig["iters"]) == float(ic["iters"]) == 5
+    assert float(ig["err_final"]) < float(ig["err_init"])
+
+
+def _closure_run(device, noise, odo):
+    """30 keyframes of the stereo world above, mounted camera, areas of 5
+    keyframes: one bootstrapped closure edge (27, 0)."""
+    import srba_tpu_torch as port
+    from srba_tpu_torch.ecps import LocalAreasFixedGrid
+    from srba_tpu_torch.models.noise import NoiseIdentity
+    from srba_tpu_torch.models.observations import StereoCalib
+    from srba_tpu_torch.models.sensor_pose import SensorPoseSE3
+    from srba_tpu_torch.ops.np_lie import CAMERA_SENSOR_POSE_SE3
+    from srba_tpu_torch.utils import datasets as tds
+    calib = StereoCalib.make(fx=200.0, fy=200.0, cx=160.0, cy=120.0,
+                             baseline=0.12)
+    world = tds.make_world_loop_3d(num_kfs=30, radius=6.0, num_landmarks=400,
+                                   height_amp=0.5, seed=8)
+    ds = tds.observe(world, "StereoCamera", calib=calib, noise_std=noise,
+                     sensor_range=8.0, odo_noise_std=odo, seed=8)
+    eng = port.SrbaEngine(
+        "StereoCamera", calib=calib, noise=NoiseIdentity(0.3),
+        sensor_pose=SensorPoseSE3(CAMERA_SENSOR_POSE_SE3),
+        ecp=LocalAreasFixedGrid(submap_size=5, min_obs_count_loop_closure=5),
+        params=port.SrbaParams(max_tree_depth=3, max_optimize_depth=3),
+        device=device)
+    for k, frame in enumerate(ds.frames):
+        eng.define_new_keyframe(
+            [port.Observation(lm_id=m, z=z) for m, z in frame],
+            edge_init={k - 1: ds.odometry[k - 1]} if k else None)
+    return eng, world
+
+
+def _edge_list(st):
+    return list(zip(st.k2k_from[:st.num_edges].tolist(),
+                    st.k2k_to[:st.num_edges].tolist()))
+
+
+def test_config3_shaped_run_on_cuda_matches_cpu(cuda):
+    """Config #3's path at a small size with exact data (whose windows are
+    well conditioned): the same edges and closure on the card as on the
+    CPU, states and the global PGO's nodes within atol 1e-3, bitwise equal
+    masters on a rerun."""
+    n0 = _launches(3)
+    eg, _ = _closure_run(cuda, 0.0, 0.0)
+    assert _launches(3) > n0
+    ec, _ = _closure_run("cpu", 0.0, 0.0)
+    sg, sc = eg.get_rba_state(), ec.get_rba_state()
+    assert _edge_list(sg) == _edge_list(sc)
+    assert (27, 0) in _edge_list(sg)
+    np.testing.assert_allclose(sg.k2k_pose[:sg.num_edges],
+                               sc.k2k_pose[:sc.num_edges], atol=1e-3)
+    np.testing.assert_allclose(sg.lm_state[:sg.num_lms],
+                               sc.lm_state[:sc.num_lms], atol=1e-3)
+    eg2, _ = _closure_run(cuda, 0.0, 0.0)
+    assert torch.equal(eg.device_master.pose, eg2.device_master.pose)
+    assert torch.equal(eg.device_master.lm, eg2.device_master.lm)
+    Gg, ig = eg.optimize_global()
+    Gc, ic = ec.optimize_global()
+    assert ig["converged"] == ic["converged"] == 1.0
+    np.testing.assert_allclose(Gg, Gc, atol=1e-3)
+
+
+def test_config3_shaped_global_pgo_on_cuda(cuda):
+    """With noise (0.3 px, odometry 0.02) the terminal ``optimize_global()``
+    on the card takes LM steps through the kernel at [256, 6, 6], once per
+    iteration, certifies, and ends within 0.1 m ATE."""
+    from srba_tpu_torch.ops import block_linalg as bl
+    from srba_tpu_torch.utils.datasets import ate_rmse
+    eng, world = _closure_run(cuda, 0.3, 0.02)
+    assert (27, 0) in _edge_list(eng.get_rba_state())
+    n0 = bl.spd_inverse_cuda.launches_by_shape.get((256, 6), 0)
+    G, info = eng.optimize_global()
+    n1 = bl.spd_inverse_cuda.launches_by_shape.get((256, 6), 0)
+    assert info["converged"] == 1.0
+    assert n1 - n0 == info["iters"] >= 1
+    assert ate_rmse(G[:, :3], world.gt_poses[:, :3]) < 0.1

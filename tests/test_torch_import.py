@@ -74,7 +74,7 @@ def test_unported_names_raise(what):
                 lm_type="Euclidean2D", max_depth=3)
     with pytest.raises(NotImplementedError) as ei:
         if what == "observation":
-            SrbaEngine("StereoCamera", device="cpu")
+            SrbaEngine("MonocularCamera", device="cpu")
         elif what == "group":
             # Both of the JAX package's groups are ported: a name neither
             # package has still raises by name through the lookup.
@@ -93,7 +93,7 @@ def test_unported_names_raise(what):
 
 
 def test_unported_models_and_options_raise():
-    """The camera models, sensor mounting poses and calibrations are not
+    """The monocular and RGB-D camera models and their calibration are not
     ported: each raises by name."""
     from srba_tpu_torch import SrbaEngine
     from srba_tpu_torch.utils.datasets import make_world_loop_3d, observe
@@ -101,15 +101,19 @@ def test_unported_models_and_options_raise():
     for name in ("MonocularCamera", "RGBDCamera"):
         with pytest.raises(NotImplementedError, match=name):
             SrbaEngine(name, device="cpu")
-    with pytest.raises(NotImplementedError, match="StereoCamera"):
+    with pytest.raises(NotImplementedError, match="MonocularCamera"):
         observe(make_world_loop_3d(num_kfs=4, num_landmarks=5),
-                "StereoCamera")
+                "MonocularCamera")
     with pytest.raises(NotImplementedError, match="calibrated"):
         SrbaEngine("RangeBearing3D", calib=object(), device="cpu")
 
 
 def test_closure_targets_raise():
+    """Closure targets are served (a policy's closure target with too few
+    voters for a fit gets an estimate-seeded edge, as in the JAX package);
+    what still raises is the monocular closure fit, by name."""
     from srba_tpu_torch import Observation, SrbaEngine
+    from srba_tpu_torch.engine.closure import bootstrap_closure_edge
 
     class ClosurePolicy:
         def edges_for_new_kf(self, state, graph, new_kf, obs_lm_ids):
@@ -121,8 +125,57 @@ def test_closure_targets_raise():
         eng.define_new_keyframe(
             [Observation(lm_id=0, z=np.asarray([1.0, 0.1], np.float32))],
             edge_init={k - 1: [0.1, 0.0, 0.0]} if k else None)
-    with pytest.raises(NotImplementedError, match="loop-closure"):
-        eng.define_new_keyframe([], edge_init={1: [0.1, 0.0, 0.0]})
+    info = eng.define_new_keyframe([], edge_init={1: [0.1, 0.0, 0.0]})
+    st = eng.get_rba_state()
+    assert [(int(st.k2k_from[e]), int(st.k2k_to[e]))
+            for e in info.created_edge_ids] == [(2, 1), (2, 0)]
+
+    class Mono:
+        name = "MonocularCamera"
+        is_pose_landmark = False
+        has_inverse_model = False
+
+    eng.model = Mono
+    with pytest.raises(NotImplementedError, match="_mono_pnp"):
+        bootstrap_closure_edge(eng, 0, [], None)
+
+
+@pytest.mark.parametrize("mod", ["srba_tpu_torch.engine.closure",
+                                 "srba_tpu_torch.ecps",
+                                 "srba_tpu_torch.models.observations",
+                                 "srba_tpu_torch.models.sensor_pose",
+                                 "srba_tpu_torch.utils.datasets"])
+def test_closure_and_camera_modules_import_without_jax(mod):
+    """Each module config #3 added to or grew in the port, alone in a fresh
+    interpreter, pulls in no jax, jaxlib, flax or srba_tpu module."""
+    code = (
+        f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                    'srba_tpu'))\n"
+        "print('LEAKED', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_convert_defaults_to_cuda(monkeypatch):
+    """Like every entry point, the state carriers default to the card (and
+    raise where there is none)."""
+    import inspect
+
+    from srba_tpu_torch import convert
+    for fn in (convert.window_batch_from_jax,
+               convert.device_master_from_jax):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+    class JDM:
+        pose_dim, lm_dim = 3, 2
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.device_master_from_jax(JDM())
 
 
 @pytest.mark.parametrize("mod", ["srba_tpu_torch.solver.global_graphslam",

@@ -332,3 +332,28 @@ def test_se3_compose_path_matches_jax_mirror():
     np.testing.assert_array_equal(
         tnp_lie.compose_path(tnp_lie.NpSE3, edges, path),
         jnp_lie.compose_path(jnp_lie.NpSE3, edges, path))
+
+
+# Rotations exercising every branch of quat_from_matrix (trace > 0, and the
+# largest diagonal entry at x, y and z, including trace ~ -1): the rotation
+# vectors of tests/test_closure.py.
+QUAT_ROTVECS = ([0.1, 0.1, 0.1], [3.0, 0.1, 0.0], [0.0, 3.0, 0.1],
+                [0.1, 0.0, 3.0], [np.pi, 0, 0], [0, np.pi, 0])
+
+
+@pytest.mark.parametrize("w", QUAT_ROTVECS, ids=str)
+def test_quat_from_matrix_bit_identical_to_jax_mirror(w):
+    T = jnp_lie.NpSE3.pexp(np.asarray([0.0, 0, 0] + list(w), np.float64))
+    R = np.stack([jnp_lie.quat_rotate(T[3:], e) for e in np.eye(3)], axis=-1)
+    q = tnp_lie.quat_from_matrix(R)
+    np.testing.assert_array_equal(q, jnp_lie.quat_from_matrix(R))
+    # The same rotation up to the quaternion's sign.
+    assert min(np.abs(q - T[3:]).max(), np.abs(q + T[3:]).max()) < 1e-12
+
+
+def test_camera_sensor_pose_bit_identical_to_jax():
+    assert tnp_lie.CAMERA_SENSOR_POSE_SE3.dtype == np.float32
+    np.testing.assert_array_equal(tnp_lie.CAMERA_SENSOR_POSE_SE3,
+                                  jnp_lie.CAMERA_SENSOR_POSE_SE3)
+    np.testing.assert_array_equal(tnp_lie._R_ROBOT_FROM_CAM,
+                                  jnp_lie._R_ROBOT_FROM_CAM)

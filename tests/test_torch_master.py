@@ -69,7 +69,7 @@ def _three_mirrored_steps(model):
     for obs, init in frames[:9]:
         jeng.define_new_keyframe(obs, edge_init=init)
     jdm = jeng.device_master
-    pdm = convert.device_master_from_jax(jdm)
+    pdm = convert.device_master_from_jax(jdm, device="cpu")
     pairs = []
     orig_step = jdm.step
 
@@ -209,7 +209,7 @@ def test_masked_scatter_adds_exact_zeros_at_se3_width():
     arrays, plan = build_window(jeng.state, jeng.graph, 7, 2, 3,
                                 gather_floats=False)
     assert (arrays.edge_gids[len(plan.edge_ids):] == 0).all()
-    pdm = convert.device_master_from_jax(jeng.device_master)
+    pdm = convert.device_master_from_jax(jeng.device_master, device="cpu")
     pdm.flush_append()
     before_pose, before_lm = pdm.pose.clone(), pdm.lm.clone()
     pdm.step(convert.solver_config_from_jax(jeng._solver_cfg),

@@ -1,13 +1,14 @@
-"""Models of the port (RangeBearing2D/3D, Cartesian2D/3D, RelativePoses2D/3D,
-the four landmark types, NoiseIdentity, SensorPoseNone, the pseudo-Huber
-kernel) against the JAX package on the same seeded inputs.
+"""Models of the port (RangeBearing2D/3D, Cartesian2D/3D, StereoCamera,
+RelativePoses2D/3D, the four landmark types, NoiseIdentity, SensorPoseNone,
+SensorPoseSE3, the pseudo-Huber kernel) against the JAX package on the same
+seeded inputs.
 
 Tolerances: torch values at atol 1e-5 (f32 sqrt/atan2/trig of the two
 frameworks may differ in the last ulps at ranges up to ~10); the ``h``,
 residual and retract Jacobians (``*_jvp`` tangents against ``jax.jacfwd``)
 at atol 1e-4; the numpy paths (dataset generation, landmark init) run the
 same numpy calls as the JAX package's numpy path and must agree bit for
-bit.
+bit.  The stereo camera's tolerances are stated at its section.
 """
 
 import jax
@@ -277,3 +278,127 @@ def test_landmark_types_match_jax(name):
     np.testing.assert_allclose(tan.numpy(), ref, atol=JAC_ATOL)
     np.testing.assert_array_equal(
         tlm.identity_state(Tl).numpy(), np.asarray(jlm.identity_state(Jl)))
+
+
+# -- StereoCamera and SensorPoseSE3 ------------------------------------------
+# Stereo pixels reach ~320: values at rtol 1e-6 (a few f32 ulps; an absolute
+# 1e-6 is below one ulp there); tangents at atol 1e-4 after dividing by the
+# focal length (entries reach fx / zc ~ 2e6 at the depth floor).
+
+JS, TS = jobs.StereoCamera, tobs.StereoCamera
+
+
+def _stereo_calibs():
+    kw = dict(fx=200.0, fy=180.0, cx=160.0, cy=120.0, baseline=0.12)
+    return jobs.StereoCalib.make(**kw), tobs.StereoCalib.make(**kw)
+
+
+def _stereo_points(n=128, seed=60):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                     rng.uniform(0.5, 9.0, n)], axis=-1).astype(np.float32)
+
+
+def test_stereo_calib_matches_jax():
+    jc, tc = _stereo_calibs()
+    for f in ("fx", "fy", "cx", "cy", "baseline"):
+        assert type(getattr(tc, f)) is np.float32, f
+        assert getattr(tc, f) == getattr(jc, f), f
+    c = tobs.calib_constants(tc)
+    assert all(type(getattr(c, f)) is float and getattr(c, f) == getattr(
+        tc, f) for f in ("fx", "fy", "cx", "cy", "baseline"))
+    assert tobs.calib_constants(None) is None
+
+
+def test_stereo_h_and_inverse_match_jax():
+    jc, tc = _stereo_calibs()
+    pts = _stereo_points()
+    z = np.array(JS.h(jnp.asarray(pts), jc))
+    out = TS.h(torch.from_numpy(pts), tobs.calib_constants(tc)).numpy()
+    np.testing.assert_allclose(out, z, rtol=1e-6)
+    inv = TS.inverse(torch.from_numpy(z), tobs.calib_constants(tc)).numpy()
+    np.testing.assert_allclose(
+        inv, np.asarray(JS.inverse(jnp.asarray(z), jc)), rtol=1e-6,
+        atol=1e-6)
+    # Host (numpy) paths: the same numpy calls, bit for bit.
+    np.testing.assert_array_equal(TS.h(pts, tc), JS.h(pts, jc))
+    np.testing.assert_array_equal(TS.inverse(z, tc), JS.inverse(z, jc))
+    for attr in ("name", "obs_dim", "z_dim", "lm_dim", "has_inverse_model",
+                 "is_pose_landmark"):
+        assert getattr(TS, attr) == getattr(JS, attr), attr
+
+
+def test_stereo_disparity_sign():
+    """tests/test_observations.py's check: ul > ur for points ahead, and
+    vl == vr (rectified)."""
+    _, tc = _stereo_calibs()
+    z = TS.h(torch.tensor([[0.5, 0.1, 4.0]]), tobs.calib_constants(tc))
+    assert float(z[0, 0]) > float(z[0, 2])
+    assert float(z[0, 1]) == float(z[0, 3])
+
+
+@pytest.mark.parametrize("where", ["random", "depth_floor_tie",
+                                   "below_floor"])
+def test_stereo_h_jvp_matches_jax_jacfwd(where):
+    """Including zc == 1e-4 exactly (the tie of ``max(zc, 1e-4)``, where
+    JAX's AD takes the derivative 0.5) and points behind the floor."""
+    jc, tc = _stereo_calibs()
+    pts = _stereo_points(32, seed=61)
+    if where == "depth_floor_tie":
+        pts[:, 2] = np.float32(1e-4)
+    elif where == "below_floor":
+        pts[:, 2] = np.linspace(-1.0, 5e-5, 32, dtype=np.float32)
+    ref = np.asarray(jax.vmap(jax.jacfwd(lambda p: JS.h(p, jc)))(
+        jnp.asarray(pts)))
+    tp = torch.from_numpy(pts)
+    val, tan = TS.h_jvp(tp, torch.eye(3).expand(32, 3, 3),
+                        tobs.calib_constants(tc))
+    assert torch.equal(val, TS.h(tp, tobs.calib_constants(tc)))
+    np.testing.assert_allclose(tan.numpy() / 200.0, ref / 200.0,
+                               rtol=1e-5, atol=JAC_ATOL)
+
+
+def test_stereo_chain_jacobian_with_mount_matches_jax():
+    """h(apply(mount_inv, apply(pose, lm))): the chain the solver builds
+    with a sensor mount, with respect to the pose and the landmark."""
+    from srba_tpu.ops.np_lie import CAMERA_SENSOR_POSE_SE3, NpSE3
+    jc, tc = _stereo_calibs()
+    spinv = NpSE3.inverse(CAMERA_SENSOR_POSE_SE3).astype(np.float32)
+    rng = np.random.default_rng(62)
+    pose = np.array(jlie.SE3.pexp(rng.normal(0, 0.2, (32, 6)).astype(
+        np.float32)))
+    # Landmarks ahead of the camera: robot x forward.
+    lm = np.stack([rng.uniform(2, 8, 32), rng.uniform(-2, 2, 32),
+                   rng.uniform(-1, 1, 32)], -1).astype(np.float32)
+
+    def f(p, l):
+        return JS.h(jlie.SE3.apply(spinv, jlie.SE3.apply(p, l)), jc)
+
+    ref_p = np.asarray(jax.vmap(jax.jacfwd(f, 0))(pose, lm))
+    ref_l = np.asarray(jax.vmap(jax.jacfwd(f, 1))(pose, lm))
+    basis = torch.eye(10).expand(32, 10, 10)
+    pt, dpt = tlie.SE3.apply_jvp(torch.from_numpy(pose), torch.from_numpy(lm),
+                                 basis[:, :7], basis[:, 7:])
+    pt, dpt = tlie.SE3.apply_jvp(torch.from_numpy(spinv), pt, None, dpt)
+    _, tan = TS.h_jvp(pt, dpt, tobs.calib_constants(tc))
+    np.testing.assert_allclose(tan[..., :7].numpy(), ref_p, rtol=1e-5,
+                               atol=JAC_ATOL * 10)
+    np.testing.assert_allclose(tan[..., 7:].numpy(), ref_l, rtol=1e-5,
+                               atol=JAC_ATOL * 10)
+
+
+def test_sensor_pose_se3_matches_jax():
+    from srba_tpu.ops.np_lie import CAMERA_SENSOR_POSE_SE3
+    t = tsp.SensorPoseSE3(CAMERA_SENSOR_POSE_SE3)
+    j = jsp.SensorPoseSE3(CAMERA_SENSOR_POSE_SE3)
+    assert (t.name, t.is_identity) == (j.name, j.is_identity)
+    out = t.pose_for(tlie.SE3)
+    assert isinstance(out, np.ndarray) and out.dtype == np.float32
+    np.testing.assert_array_equal(out, np.asarray(j.pose_for(jlie.SE3)))
+    np.testing.assert_array_equal(
+        tsp.SensorPoseSE3([1.0, 2.0, 0.3]).pose_for(tlie.SE2),
+        np.asarray(jsp.SensorPoseSE3([1.0, 2.0, 0.3]).pose_for(jlie.SE2)))
+    with pytest.raises(ValueError, match="7-vector"):
+        tsp.SensorPoseSE3([1.0, 2.0, 0.3]).pose_for(tlie.SE3)
+    with pytest.raises(ValueError, match="SE2"):
+        t.pose_for(tlie.SE2)

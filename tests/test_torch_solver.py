@@ -22,7 +22,15 @@ noise, so ``rel_tol=0.05`` stops on the 3rd step) and on a graph-SLAM
 RelativePoses2D window whose paths cross closure edges (pose landmarks
 fixed, priors of weight 0 as the engine builds them; improvements 0.863,
 7.6e-5, then noise, so ``rel_tol=1e-3`` stops on the 2nd step), with the
-tolerances above.
+tolerances above, and on config #3's kind of window: StereoCamera with its
+calibration and the camera mounted on the robot (``SensorPoseSE3``), pixel
+noise 0.3 (improvements 0.707, 0.925, 0.906, 0.130, 1.5e-4, then noise, so
+``rel_tol=0.05`` stops on the 5th step).  Its r and J hold at atol 1e-4
+(rtol 1e-5: Jacobian entries reach ~fx / depth / 0.3 ~ 300); its solved
+state at atol 1e-3 and its errors at rtol 1e-3, because one LM step from
+the odometry seed (total squared error 45,208) leaves the far landmarks
+(depth up to 8 m, disparity ~3 px) ~4e-4 m apart between the frameworks,
+a gap that later steps close to ~3e-5.
 """
 
 import dataclasses
@@ -48,6 +56,8 @@ torch.set_num_threads(1)
 
 DELTA_ATOL, ERR_RTOL = 1e-4, 1e-4
 R_RTOL, R_ATOL = 1e-4, 1e-3
+STEREO_R_RTOL, STEREO_R_ATOL = 1e-5, 1e-4
+STEREO_STATE_ATOL, STEREO_ERR_RTOL = 1e-3, 1e-3
 
 
 @pytest.fixture(scope="module")
@@ -71,14 +81,29 @@ def window():
     return eng._solver_cfg, arrays, eng._whitener
 
 
-@pytest.fixture(scope="module", params=["RangeBearing3D", "RelativePoses2D"])
+@pytest.fixture(scope="module", params=["RangeBearing3D", "RelativePoses2D",
+                                        "StereoCamera"])
 def wide_window(request):
-    """A depth-3 window of a 10-KF SE(3) range-bearing map, or of a 24-KF
-    graph-SLAM map with closure edges, whose edges still hold their
-    odometry / measurement seeds."""
+    """A depth-3 window of a 10-KF SE(3) range-bearing or mounted-stereo
+    map, or of a 24-KF graph-SLAM map with closure edges, whose edges still
+    hold their odometry / measurement seeds."""
     from srba_tpu.models.noise import NoiseIdentity
+    from srba_tpu.models.observations import StereoCalib
+    from srba_tpu.models.sensor_pose import SensorPoseSE3
+    from srba_tpu.ops.np_lie import CAMERA_SENSOR_POSE_SE3
     model = request.param
-    if model == "RangeBearing3D":
+    kw = {}
+    if model == "StereoCamera":
+        calib = StereoCalib.make(fx=200.0, fy=200.0, cx=160.0, cy=120.0,
+                                 baseline=0.12)
+        world = make_world_loop_3d(num_kfs=20, radius=6.0, num_landmarks=150,
+                                   height_amp=0.5, seed=8)
+        ds = observe(world, model, calib=calib, noise_std=0.3,
+                     sensor_range=8.0, odo_noise_std=0.02, seed=8)
+        nk, noise, rel_tol = 10, 0.3, 0.05
+        kw = dict(calib=calib,
+                  sensor_pose=SensorPoseSE3(CAMERA_SENSOR_POSE_SE3))
+    elif model == "RangeBearing3D":
         world = make_world_loop_3d(num_kfs=20, radius=6.0, num_landmarks=80,
                                    seed=2)
         ds = observe(world, model, noise_std=0.005, sensor_range=5.0,
@@ -93,7 +118,7 @@ def wide_window(request):
         nk, noise, rel_tol = 24, 0.002, 1e-3
     eng = JEngine(model, noise=NoiseIdentity(noise),
                   params=JParams(max_tree_depth=3, max_optimize_depth=3),
-                  device_master=False)
+                  device_master=False, **kw)
     for k, frame in enumerate(ds.frames[:nk]):
         eng.define_new_keyframe(
             [JObservation(lm_id=m, z=z) for m, z in frame],
@@ -101,11 +126,12 @@ def wide_window(request):
             edge_init={k - 1: ds.odometry[k - 1]} if k else None)
     arrays, _ = build_window(eng.state, eng.graph, nk - 1, 3, 3)
     cfg = dataclasses.replace(eng._solver_cfg, rel_tol=rel_tol)
-    return cfg, arrays, eng._whitener, eng._sensor_pose_inv
+    assert cfg.use_sensor_pose == (model == "StereoCamera")
+    return cfg, arrays, eng._whitener, eng._sensor_pose_inv, eng.calib
 
 
 def _jax_batch(arrays, whitener, prior_scale=None, iters_cap=None,
-               sensor_pose_inv=None):
+               sensor_pose_inv=None, calib=None):
     return jlm.WindowBatch(
         edge_pose=jnp.asarray(arrays.edge_pose),
         edge_opt=jnp.asarray(arrays.edge_opt),
@@ -123,7 +149,8 @@ def _jax_batch(arrays, whitener, prior_scale=None, iters_cap=None,
         edge_prior_w=(None if prior_scale is None
                       else jnp.asarray(arrays.edge_prior_w * prior_scale)),
         iters_cap=(None if iters_cap is None
-                   else jnp.asarray(iters_cap, jnp.int32)))
+                   else jnp.asarray(iters_cap, jnp.int32)),
+        calib=calib)
 
 
 def test_linearization_matches_jax(window):
@@ -142,7 +169,7 @@ def test_linearization_matches_jax(window):
     r_ref = np.asarray(jax.vmap(lambda *a: f(eps0, *a))(*args))
     J_ref = np.asarray(jax.vmap(lambda *a: jax.jacfwd(f)(eps0, *a))(*args))
 
-    tb = convert.window_batch_from_jax(jb)
+    tb = convert.window_batch_from_jax(jb, device="cpu")
     linearize, prior_linearize = tlm.make_linearize(
         convert.solver_config_from_jax(cfg))
     r, J = linearize(tb.edge_pose, tb.lm_state, tb, jac=True)
@@ -179,7 +206,7 @@ def test_solve_matches_jax(window, case):
     jb = _jax_batch(arrays, W, prior_scale=prior_scale, iters_cap=cap)
     je, jl, jinfo = jlm.make_lm_solver(cfg)[0](jb)
     te, tl, tinfo = tlm.make_solver_impl(convert.solver_config_from_jax(
-        cfg))[0](convert.window_batch_from_jax(jb))
+        cfg))[0](convert.window_batch_from_jax(jb, device="cpu"))
     e0, l0 = arrays.edge_pose, arrays.lm_state
     np.testing.assert_allclose(te.numpy() - e0, np.asarray(je) - e0,
                                atol=DELTA_ATOL)
@@ -200,7 +227,7 @@ def test_eval_error_matches_jax(window):
     jb = _jax_batch(arrays, W, prior_scale=1.0)
     ref = float(jlm.make_lm_solver(cfg)[1](jb))
     out = float(tlm.make_solver_impl(convert.solver_config_from_jax(cfg))[1](
-        convert.window_batch_from_jax(jb)))
+        convert.window_batch_from_jax(jb, device="cpu")))
     assert out == pytest.approx(ref, rel=ERR_RTOL)
 
 
@@ -210,7 +237,7 @@ def test_non_spd_system_rejects_the_step(window):
     cfg, arrays, W = window
     tcfg = dataclasses.replace(convert.solver_config_from_jax(cfg),
                                diag_floor=-1e12, max_iters=2)
-    tb = convert.window_batch_from_jax(_jax_batch(arrays, W))
+    tb = convert.window_batch_from_jax(_jax_batch(arrays, W), device="cpu")
     e, l, info = tlm.make_solver_impl(tcfg)[0](tb)
     assert torch.equal(e, tb.edge_pose) and torch.equal(l, tb.lm_state)
     assert float(info["err_final"]) == float(info["err_init"])
@@ -222,32 +249,35 @@ def test_make_lm_solver_moves_batch_to_its_device(window):
     jb = _jax_batch(arrays, W)
     solve, _ = tlm.make_lm_solver(convert.solver_config_from_jax(cfg),
                                   device="cpu")
-    e, _, info = solve(convert.window_batch_from_jax(jb))
+    e, _, info = solve(convert.window_batch_from_jax(jb, device="cpu"))
     assert e.device.type == "cpu" and info["iters"].dtype == torch.int32
 
 
 def test_linearization_matches_jax_se3_and_graph_slam(wide_window):
     """r and J of every observation and of the edge priors on the wide
     windows, against the JAX package's vmap(jacfwd)."""
-    cfg, arrays, W, spinv = wide_window
-    jb = _jax_batch(arrays, W, prior_scale=1.0, sensor_pose_inv=spinv)
+    cfg, arrays, W, spinv, calib = wide_window
+    jb = _jax_batch(arrays, W, prior_scale=1.0, sensor_pose_inv=spinv,
+                    calib=calib)
     per_obs, eps_dim = jlm._make_per_obs_residual(cfg)
     eps0 = jnp.zeros((eps_dim,), jnp.float32)
 
     def f(eps, z, li, pe, ps):
         return per_obs(eps, jb.edge_pose, jb.lm_state, z, li, pe, ps,
-                       jb.whitener, jb.sensor_pose_inv, None)
+                       jb.whitener, jb.sensor_pose_inv, jb.calib)
 
     args = (jb.obs_z, jb.obs_lm, jb.path_edge, jb.path_sign)
     r_ref = np.asarray(jax.vmap(lambda *a: f(eps0, *a))(*args))
     J_ref = np.asarray(jax.vmap(lambda *a: jax.jacfwd(f)(eps0, *a))(*args))
-    tb = convert.window_batch_from_jax(jb)
+    tb = convert.window_batch_from_jax(jb, device="cpu")
     linearize, prior_linearize = tlm.make_linearize(
         convert.solver_config_from_jax(cfg))
     r, J = linearize(tb.edge_pose, tb.lm_state, tb, jac=True)
     assert J.shape == J_ref.shape
-    np.testing.assert_allclose(r.numpy(), r_ref, rtol=R_RTOL, atol=R_ATOL)
-    np.testing.assert_allclose(J.numpy(), J_ref, rtol=R_RTOL, atol=R_ATOL)
+    rtol, atol = ((STEREO_R_RTOL, STEREO_R_ATOL)
+                  if cfg.obs_model == "StereoCamera" else (R_RTOL, R_ATOL))
+    np.testing.assert_allclose(r.numpy(), r_ref, rtol=rtol, atol=atol)
+    np.testing.assert_allclose(J.numpy(), J_ref, rtol=rtol, atol=atol)
     r_only, _ = linearize(tb.edge_pose, tb.lm_state, tb, jac=False)
     assert torch.equal(r_only, r)
 
@@ -267,25 +297,29 @@ def test_linearization_matches_jax_se3_and_graph_slam(wide_window):
 
 @pytest.mark.parametrize("cap", [None, 1])
 def test_solve_matches_jax_se3_and_graph_slam(wide_window, cap):
-    cfg, arrays, W, spinv = wide_window
+    cfg, arrays, W, spinv, calib = wide_window
     jb = _jax_batch(arrays, W, prior_scale=1.0, iters_cap=cap,
-                    sensor_pose_inv=spinv)
+                    sensor_pose_inv=spinv, calib=calib)
     je, jl, jinfo = jlm.make_lm_solver(cfg)[0](jb)
     te, tl, tinfo = tlm.make_solver_impl(convert.solver_config_from_jax(
-        cfg))[0](convert.window_batch_from_jax(jb))
+        cfg))[0](convert.window_batch_from_jax(jb, device="cpu"))
+    stereo = cfg.obs_model == "StereoCamera"
+    atol = STEREO_STATE_ATOL if stereo else DELTA_ATOL
     e0, l0 = arrays.edge_pose, arrays.lm_state
     np.testing.assert_allclose(te.numpy() - e0, np.asarray(je) - e0,
-                               atol=DELTA_ATOL)
+                               atol=atol)
     np.testing.assert_allclose(tl.numpy() - l0, np.asarray(jl) - l0,
-                               atol=DELTA_ATOL)
+                               atol=atol)
     jinfo = {k: float(v) for k, v in jinfo.items()}
     tinfo = {k: float(v) for k, v in tinfo.items()}
     for k in ("err_init", "err_final"):
-        assert tinfo[k] == pytest.approx(jinfo[k], rel=ERR_RTOL), k
+        assert tinfo[k] == pytest.approx(
+            jinfo[k], rel=STEREO_ERR_RTOL if stereo else ERR_RTOL), k
     for k in ("iters", "lam", "num_obs"):
         assert tinfo[k] == jinfo[k], (k, tinfo, jinfo)
     assert tinfo["err_final"] < tinfo["err_init"]
-    expect = {"RangeBearing3D": 3, "RelativePoses2D": 2}[cfg.obs_model]
+    expect = {"RangeBearing3D": 3, "RelativePoses2D": 2,
+              "StereoCamera": 5}[cfg.obs_model]
     assert tinfo["iters"] == (cap if cap is not None else expect)
     if cfg.obs_model == "RelativePoses2D":
         # Pose landmarks are fixed (lm_opt = 0): the state never moves.

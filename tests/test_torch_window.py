@@ -180,7 +180,7 @@ def test_window_batch_converts_at_se3_width(jax_engine_wide):
         edge_prior=jnp.asarray(arrays.edge_prior),
         edge_prior_w=jnp.asarray(arrays.edge_prior_w),
         iters_cap=jnp.asarray(3, jnp.int32))
-    tb = convert.window_batch_from_jax(jb)
+    tb = convert.window_batch_from_jax(jb, device="cpu")
     assert tb.edge_pose.shape[1] == tb.edge_prior.shape[1] == dim
     assert tb.sensor_pose_inv.shape == (dim,) and tb.iters_cap == 3
     for f in dataclasses.fields(tb):
