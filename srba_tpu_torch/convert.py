@@ -16,7 +16,8 @@ import torch
 
 from srba_tpu_torch.engine.device_master import DeviceMaster
 from srba_tpu_torch.engine.state import ProblemState
-from srba_tpu_torch.models.observations import StereoCalib, calib_constants
+from srba_tpu_torch.models.observations import (CameraCalib, StereoCalib,
+                                                calib_constants)
 from srba_tpu_torch.solver.lm import SolverConfig, WindowBatch
 
 
@@ -25,24 +26,30 @@ def solver_config_from_jax(cfg) -> SolverConfig:
     return SolverConfig(**dataclasses.asdict(cfg))
 
 
-def stereo_calib_from_jax(jc) -> StereoCalib:
-    """JAX ``StereoCalib`` (host numpy scalar leaves) -> the port's."""
-    return StereoCalib.make(fx=np.asarray(jc.fx), fy=np.asarray(jc.fy),
-                            cx=np.asarray(jc.cx), cy=np.asarray(jc.cy),
-                            baseline=np.asarray(jc.baseline))
+def calib_from_jax(jc):
+    """JAX ``CameraCalib`` or ``StereoCalib`` (host numpy scalar leaves) ->
+    the port's, told apart by their fields (a stereo rig has a
+    ``baseline``)."""
+    kw = {f: np.asarray(getattr(jc, f)) for f in ("fx", "fy", "cx", "cy")}
+    if hasattr(jc, "baseline"):
+        return StereoCalib.make(baseline=np.asarray(jc.baseline), **kw)
+    return CameraCalib.make(**kw)
+
+
+stereo_calib_from_jax = calib_from_jax
 
 
 def window_batch_from_jax(jb, device="cuda") -> WindowBatch:
     """JAX ``WindowBatch`` -> port ``WindowBatch`` on ``device``.  A
-    ``StereoCalib`` becomes the port's in its device form (Python floats);
-    a scalar ``iters_cap`` becomes a host int."""
+    calibration becomes the port's in its device form (Python floats); a
+    scalar ``iters_cap`` becomes a host int."""
     fields = {}
     for f in dataclasses.fields(WindowBatch):
         v = getattr(jb, f.name)
         if v is None:
             fields[f.name] = None
         elif f.name == "calib":
-            fields[f.name] = calib_constants(stereo_calib_from_jax(v))
+            fields[f.name] = calib_constants(calib_from_jax(v))
         elif f.name == "iters_cap":
             fields[f.name] = int(np.asarray(v))
         else:

@@ -8,15 +8,17 @@ incrementally optimized spanning tree) carries the loop's accumulated
 drift, which can put the seed far outside the basin of the local
 reprojection LM.  The fix is what a SLAM front-end does: estimate the
 closure transform from the *re-observed landmarks themselves*, which is
-drift-free.  For models with a single-view inverse sensor model
-(range-bearing, Cartesian, stereo): invert the new keyframe's observations
-into points in the new frame, rigidly align them (Kabsch, closed form) to
-the landmarks' current positions composed into the center frame, polish the
-fit in observation space by damped Gauss-Newton, and gate it on its
-predicted pose sigma.
+drift-free.
 
-The monocular branch (multi-start PnP, ``_mono_pnp`` of the JAX package)
-needs ``MonocularCamera`` and comes with it; until then it raises by name.
+* Models with a single-view inverse sensor model (range-bearing, Cartesian,
+  stereo, RGB-D): invert the new keyframe's observations into points in
+  the new frame, rigidly align them (Kabsch, closed form) to the landmarks'
+  current positions composed into the center frame, polish the fit in
+  observation space by damped Gauss-Newton, and gate it on its predicted
+  pose sigma.
+* Monocular (bearings only): multi-start damped Gauss-Newton PnP over the
+  known voter landmarks, gated on its pixel RMS (``closure_gate_px``) and
+  its predicted pose sigma.
 
 Host-side numpy by design: a closure fires about once per submap revisit
 with a handful of correspondences — tiny, latency-sensitive work that a
@@ -28,11 +30,12 @@ scenarios whose gates are decisive.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-from srba_tpu_torch.ops.np_lie import compose_path, quat_from_matrix
+from srba_tpu_torch.ops.np_lie import (compose_path, quat_from_matrix,
+                                       quat_rotate)
 
 
 def _kabsch(P: np.ndarray, Q: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -170,6 +173,42 @@ def _gn_solve(g, residual, T0, dof: int, iters: int = 25
     return T[0], float(rms[0]), JtJ[0]
 
 
+def _mono_pnp(engine, P: np.ndarray, Z: np.ndarray, T_seed: np.ndarray
+              ) -> Tuple[Optional[np.ndarray], float, Optional[np.ndarray]]:
+    """Multi-start damped Gauss-Newton PnP: returns ``(T_new<-center,
+    rms_px, JtJ)`` of the best start.  All starts advance together in one
+    batched solve.  Two start families:
+
+    * the seed composed with a yaw grid (drift is mostly yaw);
+    * the same rotations with the translation re-solved so that the camera
+      sits at the voters' median spread distance looking at their centroid
+      ("look-at" starts): at large drift the seed translation can put every
+      voter behind the camera, where the saturated residual has no
+      gradient, and a look-at start always has the voters in front.
+    """
+    g = engine.np_group
+    residual = _obs_residual_fn(engine, P, Z)
+    yaws = np.deg2rad([0, 15, -15, 30, -30, 45, -45, 60, -60, 90, -90, 180])
+    dv = np.zeros((len(yaws), 6))
+    dv[:, 5] = yaws                     # yaw slot of the SE3 pseudo-log
+    T0 = g.retract(np.asarray(T_seed, np.float64)[None, :], dv)  # [S, 7]
+
+    # Look-at starts: keep each start's rotation and re-solve its
+    # translation so that the voter centroid projects onto the optical axis
+    # at distance d:  T·c = S_mount·[0, 0, d]  =>  t = q_tgt − R_T·c.
+    c = P.mean(0)
+    d = float(np.median(np.linalg.norm(P - c, axis=-1))) + 2.0
+    q_tgt = g.apply(engine._sensor_pose.astype(np.float64),
+                    np.asarray([0.0, 0.0, d]))
+    T1 = T0.copy()
+    T1[:, :3] = q_tgt[None, :] - quat_rotate(T0[:, 3:], c[None, :])
+    T_all = np.concatenate([T0, T1], axis=0)
+
+    T, rms, JtJ = _gn_solve_batched(g, residual, T_all, 6)
+    b = int(np.argmin(rms))
+    return T[b], float(rms[b]), JtJ[b]
+
+
 def _fit_sigma(rms: float, JtJ: np.ndarray, obs_sigma: float = 1.0) -> float:
     """Predicted worst-direction pose sigma of a closure fit: residual
     scale over the square root of JtJ's smallest eigenvalue.  Large either
@@ -195,24 +234,19 @@ def bootstrap_closure_edge(engine, center: int,
       closure_max_sigma * closure_accept_sigma_factor]``: the engine caches
       the best weak fit per area and materializes it only if no strong fit
       arrives first;
-    * ``"reject"`` — sigma beyond the weak cap: DEFER (the ECP re-votes on
-      later frames);
+    * ``"reject"`` — the fit failed hard (monocular pixel RMS beyond
+      ``closure_gate_px``, or sigma beyond the weak cap): DEFER (the ECP
+      re-votes on later frames);
     * ``"n/a"``    — not applicable (too few usable correspondences,
       collinear voters, pose-landmark mode): the caller falls back to an
       estimate-based seed.
 
     ``gate_ratio`` is the fit's worst gate value over its (strong)
     threshold; the engine re-verifies non-far fits against an exact mirror.
-    ``seed`` serves the monocular fit only (not ported yet).
+    ``seed`` (the estimate of ``T_new<-center``) starts the monocular fit.
     """
     model = engine.model
     if model.is_pose_landmark:
-        return "n/a", None, np.inf, np.inf, None
-    if model.name == "MonocularCamera":
-        raise NotImplementedError(
-            "the monocular closure fit (_mono_pnp) is not ported to "
-            "srba_tpu_torch yet")
-    if not model.has_inverse_model:
         return "n/a", None, np.inf, np.inf, None
     P, Z = _voter_points_in_center(engine, center, voters)
     d = engine.lm_type.dim
@@ -220,32 +254,50 @@ def bootstrap_closure_edge(engine, center: int,
     max_sigma = engine.parameters.closure_max_sigma
     factor = engine.parameters.closure_accept_sigma_factor
 
-    if P.shape[0] < (2 if d == 2 else 3):
-        return "n/a", None, np.inf, np.inf, None
-    # Measured points in the NEW keyframe's robot frame.
-    pts_new = np.asarray(model.inverse(Z.astype(np.float32),
-                                       engine._calib_np), np.float64)
-    if engine._use_sensor_pose:
-        pts_new = engine.np_group.apply(
-            engine._sensor_pose.astype(np.float64), pts_new)
-    # Collinearity guard: Kabsch needs spatial extent.
-    if np.linalg.matrix_rank(P - P.mean(0), tol=1e-6) < min(d, 2):
-        return "n/a", None, np.inf, np.inf, None
-    R, t = _kabsch(P, pts_new)      # p_new ~= R p_center + t = T (+) p
-    T = _se2_from_rt(R, t) if d == 2 else _se3_from_rt(R, t)
-    # Kabsch is only the initial basin: polish in observation space, then
-    # gate on the fit's predicted pose sigma.
-    residual = _obs_residual_fn(engine, P.astype(np.float64),
-                                Z.astype(np.float64))
-    T, rms, JtJ = _gn_solve(engine.np_group, residual,
-                            np.asarray(T, np.float64), dof)
-    sigma = _fit_sigma(rms, JtJ)
-    # Accept policy (the inverse-model fits have no pixel gate).
-    ratio = 0.0 if max_sigma is None else sigma / max_sigma
-    if max_sigma is None or sigma <= max_sigma:
-        status = "ok"
-    elif sigma <= max_sigma * factor:
-        status = "weak"
+    def _gate(rms_ratio, sigma):
+        """Accept policy (see the docstring)."""
+        ratio = rms_ratio
+        if max_sigma is not None:
+            ratio = max(ratio, sigma / max_sigma)
+        if rms_ratio > 1.0:
+            return "reject", ratio
+        if max_sigma is None or sigma <= max_sigma:
+            return "ok", ratio
+        if sigma <= max_sigma * factor:
+            return "weak", ratio
+        return "reject", ratio
+
+    if model.has_inverse_model:
+        if P.shape[0] < (2 if d == 2 else 3):
+            return "n/a", None, np.inf, np.inf, None
+        # Measured points in the NEW keyframe's robot frame.
+        pts_new = np.asarray(model.inverse(Z.astype(np.float32),
+                                           engine._calib_np), np.float64)
+        if engine._use_sensor_pose:
+            pts_new = engine.np_group.apply(
+                engine._sensor_pose.astype(np.float64), pts_new)
+        # Collinearity guard: Kabsch needs spatial extent.
+        if np.linalg.matrix_rank(P - P.mean(0), tol=1e-6) < min(d, 2):
+            return "n/a", None, np.inf, np.inf, None
+        R, t = _kabsch(P, pts_new)      # p_new ~= R p_center + t = T (+) p
+        T = _se2_from_rt(R, t) if d == 2 else _se3_from_rt(R, t)
+        # Kabsch is only the initial basin: polish in observation space,
+        # then gate on the fit's predicted pose sigma (no pixel gate).
+        residual = _obs_residual_fn(engine, P.astype(np.float64),
+                                    Z.astype(np.float64))
+        T, rms, JtJ = _gn_solve(engine.np_group, residual,
+                                np.asarray(T, np.float64), dof)
+        sigma = _fit_sigma(rms, JtJ)
+        status, ratio = _gate(0.0, sigma)
+    elif model.name == "MonocularCamera":
+        if P.shape[0] < 4:
+            return "n/a", None, np.inf, np.inf, None
+        T, rms, JtJ = _mono_pnp(engine, P, Z, seed)
+        sigma = _fit_sigma(rms, JtJ)
+        status, ratio = _gate(rms / engine.parameters.closure_gate_px,
+                              sigma)
     else:
-        return "reject", None, ratio, sigma, None
+        return "n/a", None, np.inf, np.inf, None
+    if status == "reject":
+        return status, None, ratio, sigma, None
     return status, T.astype(np.float32), ratio, sigma, JtJ.astype(np.float32)

@@ -1,23 +1,24 @@
 """SrbaEngine — the public API orchestrator, port of
 :mod:`srba_tpu.engine.engine` (the reference's ``RbaEngine``).
 
-Ported so far: the device-master incremental path for landmark models with
-an inverse sensor model on SE(2) and SE(3) — range-bearing, Cartesian and
-stereo (with its calibration and an SE(3) sensor mount) — graph-SLAM mode
+Ported so far: the device-master incremental path on SE(2) and SE(3) for
+every observation model — range-bearing, Cartesian, and the monocular,
+stereo and RGB-D cameras (with their calibration and an SE(3) sensor
+mount); monocular landmarks without an init are held pending and
+materialized by deferred two-view triangulation
+(:mod:`srba_tpu_torch.engine.triangulate`) — graph-SLAM mode
 (relative-pose observations of earlier keyframes as fixed pose landmarks,
 with a kf2kf edge to every observed keyframe beyond the tree depth), the
 chain and local-areas edge-creation policies with measurement-bootstrapped
-loop closures (:mod:`srba_tpu_torch.engine.closure`: strong fits become
-edges at once, weak ones wait for a stronger fit or age out, rejected areas
-cool down), odometry/dead-reckoned edge seeds, and the global-map entry
-points ``optimize_global`` (the global pose-graph optimization over all
-kf2kf edges, written back into the device masters) and ``bfs_visitor``.
-That is what configs #1 (2D range-bearing SE(2)), #2 (3D range-bearing
-SE(3)), #3 (stereo SE(3) with a camera mount, local areas, closures and a
-terminal global PGO) and #4 (relative-pose graph-SLAM) run.  The monocular
-and RGB-D models, monocular deferred triangulation and the host-window and
-mesh paths are not ported yet and raise by name; ``refine_map`` is not
-ported yet.
+loop closures (:mod:`srba_tpu_torch.engine.closure`: Kabsch for models
+with an inverse, multi-start PnP for the monocular camera; strong fits
+become edges at once, weak ones wait for a stronger fit or age out,
+rejected areas cool down), odometry/dead-reckoned edge seeds, and the
+global-map entry points ``optimize_global`` (the global pose-graph
+optimization over all kf2kf edges, periodic or terminal, written back into
+the device masters) and ``bfs_visitor``.  That is what configs #1-#5 run.
+The host-window and mesh paths are not ported yet and raise by name;
+``refine_map`` is not ported yet.
 
 Per keyframe the host does the integer work (allocation, edge-creation
 policy, spanning-tree paths, window selection, closure fits on the host
@@ -43,8 +44,10 @@ from srba_tpu_torch.graph.spantree import KeyframeGraph
 from srba_tpu_torch.models.landmarks import (LANDMARK_TYPES, Euclidean2D,
                                              Euclidean3D)
 from srba_tpu_torch.models.noise import NoiseIdentity
+from srba_tpu_torch.engine.triangulate import MonoTriangulator
 from srba_tpu_torch.models.observations import (OBSERVATION_MODELS,
-                                                StereoCalib, calib_constants)
+                                                CameraCalib, StereoCalib,
+                                                calib_constants)
 from srba_tpu_torch.models.sensor_pose import SensorPoseNone
 from srba_tpu_torch.ops.np_lie import np_group_for
 from srba_tpu_torch.solver.lm import SolverConfig
@@ -57,8 +60,7 @@ from srba_tpu_torch.utils.registry import lookup
 class SrbaParams:
     """Runtime parameters — the fields of the JAX package's ``SrbaParams``
     (analog of the reference's ``TSRBAParameters``) that the ported path
-    reads, with the same defaults; see there for each knob's rationale.
-    The monocular-front-end field comes with that feature."""
+    reads, with the same defaults; see there for each knob's rationale."""
 
     max_tree_depth: int = 4
     max_optimize_depth: int = 4
@@ -69,7 +71,8 @@ class SrbaParams:
     # Loop-closure bootstrap (engine/closure.py): closure edges start from a
     # fit to the re-observed landmarks, not from drifted estimates.
     closure_bootstrap: bool = True
-    # Pixel-RMS gate of the monocular fit (not ported yet).
+    # Pixel-RMS gate of the monocular fit: worse fits are rejected (the
+    # area cools down and the ECP re-votes on later frames).
     closure_gate_px: float = 25.0
     # A fit whose predicted worst-direction pose sigma is below this is
     # STRONG (edge now); up to ``closure_accept_sigma_factor`` times it is
@@ -106,6 +109,12 @@ class SrbaParams:
     lam0: float = 1e-4
     rel_tol: float = 1e-6
     solver: str = "schur_dense_cholesky"
+    # Monocular front-end (engine/triangulate.py): a new landmark seen
+    # without an init is held pending and materialized by two-view midpoint
+    # triangulation once a sighting with at least this parallax exists
+    # (its buffered observations replayed).  None requires every monocular
+    # init from the caller (the reference's contract).
+    mono_min_parallax_deg: Optional[float] = 1.0
 
 
 @dataclass
@@ -114,7 +123,9 @@ class Observation:
 
     ``fixed_rel_pos``: landmark with exactly known position in its base frame
     (excluded from optimization).  ``init_rel_pos``: explicit initial value
-    for a new unknown landmark (default: the inverse sensor model)."""
+    for a new unknown landmark (default: the inverse sensor model; for the
+    monocular camera, deferred triangulation, or a ``ValueError`` with
+    ``mono_min_parallax_deg=None``)."""
 
     lm_id: int
     z: Any
@@ -149,11 +160,12 @@ class SrbaEngine:
             raise NotImplementedError(
                 "host-window and mesh solves are not ported to "
                 "srba_tpu_torch yet (only the device-master path is)")
-        if calib is not None and not isinstance(calib, StereoCalib):
+        if calib is not None and not isinstance(calib,
+                                                (CameraCalib, StereoCalib)):
             raise NotImplementedError(
-                "calibrated observation models other than StereoCamera "
-                f"(calib {type(calib).__name__}) are not ported to "
-                "srba_tpu_torch yet")
+                "calibrated observation models take a CameraCalib or a "
+                f"StereoCalib; calib {type(calib).__name__} is not ported "
+                "to srba_tpu_torch")
         self.model = lookup(OBSERVATION_MODELS, obs_model,
                             "observation model")
         self.group = self.model.pose_group
@@ -217,6 +229,7 @@ class SrbaEngine:
         # Step seq of the last accepted closure's refinement: a stale mirror
         # is never accepted from before this point.
         self._closure_barrier_seq = 0
+        self._tri = None   # lazy MonoTriangulator (monocular deferred inits)
 
         self._solver_cfg = SolverConfig(
             obs_model=self.model.name,
@@ -625,8 +638,12 @@ class SrbaEngine:
                         fixed_rel_pos=None, init_rel_pos=None) -> int:
         """Register one observation; first sighting of a landmark makes
         ``kf_id`` its base KF and initializes its relative state (reference
-        ``add_observation`` + ``inverse_sensor_model``).  Returns the
-        observation id."""
+        ``add_observation`` + ``inverse_sensor_model``).
+
+        Returns the observation id, or -1 when the landmark is monocular
+        with no init and the deferred-triangulation front-end is on: the
+        sighting is buffered (``num_pending_landmarks``) and replayed once
+        the landmark triangulates, based at its first sighting's KF."""
         z = np.asarray(z, np.float32)
         if z.shape != (self.model.z_dim,):
             raise ValueError(
@@ -646,6 +663,22 @@ class SrbaEngine:
             if fixed_rel_pos is not None:
                 st = np.asarray(fixed_rel_pos, np.float32)
                 internal = self._add_landmark(kf_id, st, fixed=True)
+            elif (init_rel_pos is None and not self.model.has_inverse_model
+                  and self.parameters.mono_min_parallax_deg is not None):
+                # Monocular deferred init: buffer the sighting; materialize
+                # by two-view triangulation once parallax suffices.
+                tri = self._triangulator()
+                tri.hold(lm_id, kf_id, z)
+                hit = tri.try_init(lm_id)
+                if hit is None:
+                    return -1          # still pending
+                base_kf, pt, buffered = hit
+                internal = self._add_landmark(base_kf, pt, fixed=False)
+                self._lm_id_map[lm_id] = internal
+                oid = -1
+                for kf_b, z_b in buffered:   # replay (this sighting too)
+                    oid = self.state.add_observation(kf_b, internal, z_b)
+                return oid
             else:
                 st = self._init_landmark(z, init_rel_pos)
                 internal = self._add_landmark(kf_id, st, fixed=False)
@@ -654,7 +687,10 @@ class SrbaEngine:
 
     def _batch_landmark_inits(self, observations) -> Dict[int, np.ndarray]:
         """Inverse-sensor-model inits for this frame's brand-new landmarks,
-        computed in one batched host call.  Returns {obs_list_index: init}."""
+        computed in one batched host call.  Returns {obs_list_index: init}
+        (none for a model without an inverse)."""
+        if not self.model.has_inverse_model:
+            return {}
         idxs, seen = [], set()
         for i, o in enumerate(observations):
             if (o.lm_id in self._lm_id_map or o.lm_id in seen
@@ -673,9 +709,21 @@ class SrbaEngine:
             pts = self.np_group.apply(self._sensor_pose, pts)
         return {i: pts[j] for j, i in enumerate(idxs)}
 
+    def _triangulator(self) -> MonoTriangulator:
+        if self._tri is None:
+            self._tri = MonoTriangulator(
+                self, min_parallax_deg=self.parameters.mono_min_parallax_deg)
+        return self._tri
+
     def _init_landmark(self, z: np.ndarray, init_rel_pos) -> np.ndarray:
         if init_rel_pos is not None:
             return np.asarray(init_rel_pos, np.float32)
+        if not self.model.has_inverse_model:
+            raise ValueError(
+                f"{self.model.name} has no single-view inverse sensor model; "
+                "pass init_rel_pos (or fixed_rel_pos) for new landmarks, or "
+                "enable the deferred-triangulation front-end "
+                "(SrbaParams.mono_min_parallax_deg)")
         # Inverse model gives the landmark in the SENSOR frame; map it into
         # the base-KF (robot) frame through the mounting pose.
         pt = np.asarray(self.model.inverse(z, self._calib_np), np.float32)
@@ -907,3 +955,9 @@ class SrbaEngine:
     @property
     def num_landmarks(self) -> int:
         return self.state.num_lms
+
+    @property
+    def num_pending_landmarks(self) -> int:
+        """Monocular landmarks buffered by the deferred-triangulation
+        front-end, not yet materialized (see ``add_observation``)."""
+        return 0 if self._tri is None else self._tri.num_pending

@@ -1,7 +1,6 @@
-"""Observation (sensor) models — port of :mod:`srba_tpu.models.observations`
-(so far the range-bearing, Cartesian, stereo-camera and relative-pose
-models; the monocular and RGB-D cameras raise by name through the
-``OBSERVATION_MODELS`` lookup).
+"""Observation (sensor) models — port of :mod:`srba_tpu.models.observations`:
+the range-bearing, Cartesian, monocular, stereo and RGB-D camera and
+relative-pose models.
 
 As in the JAX package, ``h``/``residual`` take the landmark already
 expressed in the sensor frame (path composition happens in the solver; for
@@ -13,7 +12,8 @@ namespace-generic: numpy in gives numpy out (dataset generation and
 inverse-model landmark init stay on the host, bit-identical to the JAX
 package's numpy path), torch in gives torch out (the solver).
 
-A calibration (:class:`StereoCalib`) holds float32 numpy scalars for the
+A calibration (:class:`CameraCalib`, :class:`StereoCalib`) holds float32
+numpy scalars for the
 host path; the torch path takes it as Python floats
 (:func:`calib_constants`): a float reaches a kernel as an argument and
 enters the arithmetic as float32, with no host->device copy, while a numpy
@@ -39,6 +39,23 @@ def _xp(a):
 
 def _wrap(xp, theta):
     return xp.arctan2(xp.sin(theta), xp.cos(theta))
+
+
+@dataclass(frozen=True)
+class CameraCalib:
+    """Pinhole calibration (analog of the reference's ``TCamera``).
+    :meth:`make` stores float32 numpy scalars, the values of the JAX
+    package's ``CameraCalib.make``."""
+
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+
+    @staticmethod
+    def make(fx=200.0, fy=200.0, cx=160.0, cy=120.0, dtype=np.float32):
+        return CameraCalib(fx=dtype(fx), fy=dtype(fy), cx=dtype(cx),
+                           cy=dtype(cy))
 
 
 @dataclass(frozen=True)
@@ -222,6 +239,76 @@ class RangeBearing3D(_PointObs):
         )
 
 
+def _pinhole(xp, lm_in_sensor, calib):
+    """Pixel (u, v) of sensor-frame points, and their inverse depth
+    ``1 / max(zc, 1e-4)``."""
+    zc = lm_in_sensor[..., 2]
+    inv_z = 1.0 / (np.maximum(zc, 1e-4) if xp is np
+                   else torch.clamp_min(zc, 1e-4))
+    u = calib.cx + calib.fx * lm_in_sensor[..., 0] * inv_z
+    v = calib.cy + calib.fy * lm_in_sensor[..., 1] * inv_z
+    return u, v, inv_z
+
+
+def _pinhole_tangent(pt, dpt, calib):
+    """Tangents of :func:`_pinhole`'s (u, v) (torch; ``dpt [..., 3, K]``),
+    with the inverse depth and its tangent.  The depth floor
+    ``max(zc, 1e-4)`` has derivative 0.5 at the tie, as JAX's AD takes
+    it."""
+    x, y, zc = pt[..., 0:1], pt[..., 1:2], pt[..., 2:3]
+    dx, dy, dz = dpt[..., 0, :], dpt[..., 1, :], dpt[..., 2, :]
+    m = torch.clamp_min(zc, 1e-4)
+    inv_z = 1.0 / m
+    # d(1/m) = -dm / m^2, dm = dz * (derivative of the floor).
+    dinv = -(dz * _tie_derivative(zc, 1e-4, above=True)) / (m * m)
+    du = calib.fx * (dx * inv_z + x * dinv)
+    dv = calib.fy * (dy * inv_z + y * dinv)
+    return du, dv, inv_z, dinv
+
+
+class MonocularCamera(_PointObs):
+    """Pinhole projection, obs = (u, v); the camera looks along +z.
+
+    No single-view inverse model exists (depth is unobservable): a new
+    landmark comes with a caller's ``init_rel_pos`` or from the engine's
+    deferred two-view triangulation (:mod:`srba_tpu_torch.engine.triangulate`,
+    ``SrbaParams.mono_min_parallax_deg``)."""
+
+    name = "MonocularCamera"
+    obs_dim = 2
+    z_dim = 2
+    lm_dim = 3
+    pose_group = SE3
+    has_inverse_model = False
+    default_depth = 3.0
+
+    @staticmethod
+    def h(lm_in_sensor, calib: CameraCalib):
+        xp = _xp(lm_in_sensor)
+        return xp.stack(_pinhole(xp, lm_in_sensor, calib)[:2], axis=-1)
+
+    @staticmethod
+    def h_jvp(pt, dpt, calib: CameraCalib):
+        """``h`` and its forward-mode tangent (torch; ``dpt [..., 3, K]``)."""
+        return (MonocularCamera.h(pt, calib),
+                torch.stack(_pinhole_tangent(pt, dpt, calib)[:2], dim=-2))
+
+    @classmethod
+    def inverse(cls, z, calib: CameraCalib, depth=None):
+        """The point at ``depth`` (default :attr:`default_depth`) along the
+        pixel's ray."""
+        xp = _xp(z)
+        d = cls.default_depth if depth is None else depth
+        x = (z[..., 0] - calib.cx) / calib.fx * d
+        y = (z[..., 1] - calib.cy) / calib.fy * d
+        if xp is np:
+            dz = np.broadcast_to(np.asarray(d, dtype=z.dtype), x.shape)
+        else:
+            dz = torch.broadcast_to(
+                torch.as_tensor(d, dtype=z.dtype, device=z.device), x.shape)
+        return xp.stack([x, y, dz], axis=-1)
+
+
 class StereoCamera(_PointObs):
     """Rectified stereo pair, obs = (ul, vl, ur, vr); right camera at
     (+baseline, 0, 0) in the left-camera (sensor) frame, which looks along
@@ -236,33 +323,20 @@ class StereoCamera(_PointObs):
     @staticmethod
     def h(lm_in_sensor, calib: StereoCalib):
         xp = _xp(lm_in_sensor)
-        x, y, zc = (lm_in_sensor[..., 0], lm_in_sensor[..., 1],
-                    lm_in_sensor[..., 2])
-        inv_z = 1.0 / (np.maximum(zc, 1e-4) if xp is np
-                       else torch.clamp_min(zc, 1e-4))
-        ul = calib.cx + calib.fx * x * inv_z
-        vl = calib.cy + calib.fy * y * inv_z
-        ur = calib.cx + calib.fx * (x - calib.baseline) * inv_z
-        vr = vl
-        return xp.stack([ul, vl, ur, vr], axis=-1)
+        ul, vl, inv_z = _pinhole(xp, lm_in_sensor, calib)
+        ur = calib.cx + calib.fx * (lm_in_sensor[..., 0] - calib.baseline) \
+            * inv_z
+        return xp.stack([ul, vl, ur, vl], axis=-1)
 
     @staticmethod
     def h_jvp(pt, dpt, calib: StereoCalib):
-        """``h`` and its forward-mode tangent (torch; ``dpt [..., 3, K]``).
-        The depth floor ``max(zc, 1e-4)`` has derivative 0.5 at the tie, as
-        JAX's AD takes it."""
-        pred = StereoCamera.h(pt, calib)
-        x, y, zc = pt[..., 0:1], pt[..., 1:2], pt[..., 2:3]
-        dx, dy, dz = dpt[..., 0, :], dpt[..., 1, :], dpt[..., 2, :]
-        m = torch.clamp_min(zc, 1e-4)
-        inv_z = 1.0 / m
-        # d(1/m) = -dm / m^2, dm = dz * (derivative of the floor).
-        dinv = -(dz * _tie_derivative(zc, 1e-4, above=True)) / (m * m)
-        dul = calib.fx * (dx * inv_z + x * dinv)
-        dvl = calib.fy * (dy * inv_z + y * dinv)
-        dur = calib.fx * (dx * inv_z + (x - calib.baseline) * dinv)
-        return pred, torch.stack(torch.broadcast_tensors(dul, dvl, dur, dvl),
-                                 dim=-2)
+        """``h`` and its forward-mode tangent (torch; ``dpt [..., 3, K]``),
+        the left image's through :func:`_pinhole_tangent`."""
+        dul, dvl, inv_z, dinv = _pinhole_tangent(pt, dpt, calib)
+        dur = calib.fx * (dpt[..., 0, :] * inv_z
+                          + (pt[..., 0:1] - calib.baseline) * dinv)
+        return StereoCamera.h(pt, calib), torch.stack(
+            torch.broadcast_tensors(dul, dvl, dur, dvl), dim=-2)
 
     @staticmethod
     def inverse(z, calib: StereoCalib):
@@ -274,6 +348,40 @@ class StereoCamera(_PointObs):
         x = (z[..., 0] - calib.cx) / calib.fx * depth
         y = (z[..., 1] - calib.cy) / calib.fy * depth
         return xp.stack([x, y, depth], axis=-1)
+
+
+class RGBDCamera(_PointObs):
+    """RGB-D camera: pinhole pixel plus metric depth, obs = (u, v, d), the
+    camera looking along +z.  The depth channel makes the inverse model
+    exact, so closures bootstrap through the closed-form Kabsch fit."""
+
+    name = "RGBDCamera"
+    obs_dim = 3
+    z_dim = 3
+    lm_dim = 3
+    pose_group = SE3
+
+    @staticmethod
+    def h(lm_in_sensor, calib: CameraCalib):
+        xp = _xp(lm_in_sensor)
+        u, v, _ = _pinhole(xp, lm_in_sensor, calib)
+        return xp.stack([u, v, lm_in_sensor[..., 2]], axis=-1)
+
+    @staticmethod
+    def h_jvp(pt, dpt, calib: CameraCalib):
+        """``h`` and its forward-mode tangent (torch; ``dpt [..., 3, K]``);
+        the depth output is ``zc`` itself, unfloored."""
+        du, dv, _, _ = _pinhole_tangent(pt, dpt, calib)
+        return RGBDCamera.h(pt, calib), torch.stack(
+            torch.broadcast_tensors(du, dv, dpt[..., 2, :]), dim=-2)
+
+    @staticmethod
+    def inverse(z, calib: CameraCalib):
+        xp = _xp(z)
+        d = z[..., 2]
+        x = (z[..., 0] - calib.cx) / calib.fx * d
+        y = (z[..., 1] - calib.cy) / calib.fy * d
+        return xp.stack([x, y, d], axis=-1)
 
 
 class _RelativePoses:
@@ -330,5 +438,6 @@ class RelativePoses3D(_RelativePoses):
 OBSERVATION_MODELS = {
     m.name: m
     for m in [Cartesian2D, Cartesian3D, RangeBearing2D, RangeBearing3D,
-              StereoCamera, RelativePoses2D, RelativePoses3D]
+              MonocularCamera, StereoCamera, RGBDCamera, RelativePoses2D,
+              RelativePoses3D]
 }

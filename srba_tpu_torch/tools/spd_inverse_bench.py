@@ -43,10 +43,10 @@ L2_BYTES = 50 * 1024 * 1024
 # share of the bound is stated.
 LAUNCH_BOUND_US = 0.5
 # chip_smoke.py phase 3's shapes: the keyframe path's Schur blocks (config
-# #3's windows reach L = 256), config #4's and config #3's PGO, a large
-# window's blocks and the PGO stacks.
-SHAPES = ((64, 2), (64, 3), (256, 3), (512, 6), (4096, 2), (32768, 3),
-          (32768, 6), (131072, 3), (131072, 6))
+# #3's windows reach L = 256), config #4's and config #3's PGO, config #5's
+# at 1000 and 5000 keyframes, a large window's blocks and the PGO stacks.
+SHAPES = ((64, 2), (64, 3), (256, 3), (512, 6), (1024, 6), (4096, 2),
+          (8192, 6), (32768, 3), (32768, 6), (131072, 3), (131072, 6))
 
 
 def bound_us(B: int, d: int) -> float:

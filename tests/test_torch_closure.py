@@ -15,6 +15,12 @@ atol 1e-3 and ATE within 1e-3 m, plus the reference test's own bounds.  The
 fits read float32 state, so a fit whose gate value sits at a threshold
 could land on either side in the two packages (a gate tie); these runs'
 gates are decisive.
+
+Last, the monocular fit (``_mono_pnp``, multi-start PnP) on
+``TestPrimitives``' scenarios and the monocular branch of
+``bootstrap_closure_edge`` through both gates (pixel RMS and sigma), at
+atol 1e-9, and the inverse-model branch through the shared gate for stereo
+and RGB-D.
 """
 
 import functools
@@ -243,3 +249,171 @@ def test_bootstrap_closure_edge_matches_jax_on_the_same_mirror(max_sigma):
                                             closure_max_sigma=0.3)
         te.parameters = dataclasses.replace(te.parameters,
                                             closure_max_sigma=0.3)
+
+
+# -- the monocular fit (multi-start PnP) and the accept gate -----------------
+# Host numpy in both packages on the same inputs: T, rms, JtJ, sigma and
+# the gate ratio at atol 1e-9 (they come out equal to the last bit, but a
+# BLAS may order a sum differently), the status exactly.
+
+PNP_ATOL = 1e-9
+
+
+def _camera_engines(model):
+    from srba_tpu.models.observations import CameraCalib as JCalib
+    from srba_tpu.models.sensor_pose import SensorPoseSE3 as JMount
+    from srba_tpu.ops.np_lie import CAMERA_SENSOR_POSE_SE3
+    from srba_tpu_torch.models.observations import CameraCalib as TCalib
+    from srba_tpu_torch.models.sensor_pose import SensorPoseSE3 as TMount
+    je = J.SrbaEngine(model, calib=JCalib.make(),
+                      sensor_pose=JMount(CAMERA_SENSOR_POSE_SE3))
+    te = T.SrbaEngine(model, calib=TCalib.make(),
+                      sensor_pose=TMount(CAMERA_SENSOR_POSE_SE3),
+                      device="cpu")
+    return je, te
+
+
+def _pnp_case(case, te):
+    """``tests/test_closure.py``'s PnP scenarios: (P, Z, seed, the voters in
+    the new keyframe's frame or None)."""
+    g = te.np_group
+    if case == "garbage":
+        rng = np.random.default_rng(2)
+        P = np.stack([rng.uniform(-4, 4, 10), rng.uniform(-4, 4, 10),
+                      rng.uniform(-0.5, 2.0, 10)], -1)
+        return P, rng.uniform(0, 300, (10, 2)), g.identity(), None
+    rng = np.random.default_rng(1)
+    T_true = g.pexp(np.asarray([2.0, -1.0, 0.2, 0.05, -0.02, 0.4]))
+    # Points in the true camera's frustum, mapped into the center frame.
+    s = np.stack([rng.uniform(-2, 2, 16), rng.uniform(-1.5, 1.5, 16),
+                  rng.uniform(2.0, 7.0, 16)], -1)
+    q = g.apply(te._sensor_pose.astype(np.float64), s)
+    P = g.apply(g.inverse(T_true), q)
+    Z = np.stack([160 + 200 * s[:, 0] / s[:, 2],
+                  120 + 200 * s[:, 1] / s[:, 2]], -1)
+    if case == "noisy":
+        Z = Z + rng.normal(0, 0.5, Z.shape)
+    seed = g.retract(T_true, np.asarray([3.0, -2.0, 0.5, 0.1, -0.1, 0.7]))
+    return P, Z, seed, q
+
+
+@pytest.mark.parametrize("case", ["large_yaw_drift", "noisy", "garbage"])
+def test_mono_pnp_matches_jax(case):
+    """``TestPrimitives``' PnP cases: the fit from a seed 40 degrees and
+    meters off recovers the pose (the voters within 0.05 of where the true
+    pose puts them); uncorrelated pixels stay above the pixel gate."""
+    je, te = _camera_engines("MonocularCamera")
+    P, Z, seed, q = _pnp_case(case, te)
+    Tt, rms_t, JtJ_t = tcl._mono_pnp(te, P, Z, seed)
+    Tj, rms_j, JtJ_j = jcl._mono_pnp(je, P, Z, seed)
+    np.testing.assert_allclose(Tt, Tj, rtol=0, atol=PNP_ATOL)
+    assert rms_t == pytest.approx(rms_j, rel=0, abs=PNP_ATOL)
+    np.testing.assert_allclose(JtJ_t, JtJ_j, rtol=1e-12, atol=PNP_ATOL)
+    if case == "garbage":
+        assert rms_t > te.parameters.closure_gate_px
+    else:
+        assert rms_t < (1.0 if case == "large_yaw_drift" else 2.0), rms_t
+        np.testing.assert_allclose(te.np_group.apply(Tt, P), q, atol=0.05)
+
+
+def _seed_center_landmarks(eng, P):
+    """Keyframe 0 with the landmarks P based there (host mirror and
+    staging), as a closure's voters see them."""
+    eng.state.add_keyframe()
+    eng.graph.add_keyframe()
+    if getattr(eng, "native", None) is not None:
+        eng.native.add_keyframe()
+    return [eng._add_landmark(0, np.asarray(p, np.float32)) for p in P]
+
+
+@pytest.mark.parametrize("case, n, gate_px, max_sigma", [
+    ("large_yaw_drift", 16, 25.0, 0.3),
+    ("noisy", 16, 25.0, 0.3),
+    ("noisy", 16, 25.0, 1e-4),       # sigma gate: reject
+    ("noisy", 16, 1e-3, 0.3),        # pixel gate: reject
+    ("large_yaw_drift", 16, 25.0, None),
+    ("garbage", 10, 25.0, 0.3),
+    ("large_yaw_drift", 3, 25.0, 0.3),   # fewer than 4 voters: n/a
+])
+def test_mono_bootstrap_matches_jax(case, n, gate_px, max_sigma):
+    """``bootstrap_closure_edge``'s monocular branch: the same status, T,
+    gate ratio, sigma and information in both packages, through both gates
+    (pixel RMS over ``closure_gate_px``, sigma over ``closure_max_sigma``)."""
+    import dataclasses
+    je, te = _camera_engines("MonocularCamera")
+    P, Z, seed, _ = _pnp_case(case, te)
+    P, Z = P[:n], Z[:n]
+    out = []
+    for eng, mod in ((je, jcl), (te, tcl)):
+        eng.parameters = dataclasses.replace(
+            eng.parameters, closure_gate_px=gate_px,
+            closure_max_sigma=max_sigma)
+        lms = _seed_center_landmarks(eng, P)
+        voters = [(lm, np.asarray(z, np.float32)) for lm, z in zip(lms, Z)]
+        out.append(mod.bootstrap_closure_edge(eng, 0, voters, seed))
+    (sj, Tj, rj, sgj, ij), (st, Tt, rt, sgt, it) = out
+    assert st == sj
+    expect = {("large_yaw_drift", 16, 25.0, 0.3): "ok",
+              ("large_yaw_drift", 16, 25.0, None): "ok",
+              ("noisy", 16, 1e-3, 0.3): "reject",
+              ("noisy", 16, 25.0, 1e-4): "reject",
+              ("garbage", 10, 25.0, 0.3): "reject",
+              ("large_yaw_drift", 3, 25.0, 0.3): "n/a"}
+    if (case, n, gate_px, max_sigma) in expect:
+        assert st == expect[(case, n, gate_px, max_sigma)]
+    if st == "n/a":
+        assert Tt is None and Tj is None
+        return
+    assert rt == pytest.approx(rj, rel=0, abs=PNP_ATOL)
+    assert sgt == pytest.approx(sgj, rel=1e-12, abs=PNP_ATOL)
+    if st == "reject":
+        assert Tt is None and Tj is None and it is None
+    else:
+        np.testing.assert_allclose(Tt, Tj, rtol=0, atol=1e-6)
+        assert Tt.dtype == np.float32
+        np.testing.assert_allclose(it, ij, rtol=1e-6)
+
+
+@pytest.mark.parametrize("model", ["StereoCamera", "RGBDCamera"])
+def test_inverse_model_bootstrap_unchanged_by_the_gate(model):
+    """The Kabsch branch through the shared accept gate: at ``rms_ratio`` 0
+    it keeps the sigma-only policy, with the same results as the JAX
+    package for every status."""
+    import dataclasses
+    if model == "StereoCamera":
+        je, te = _stereo_engines()
+        _, P, Z = _stereo_voters(te, pix_noise=0.3)
+    else:
+        # _stereo_voters' geometry; (u, v, depth) with pixel and depth noise.
+        je, te = _camera_engines(model)
+        g = te.np_group
+        rng = np.random.default_rng(21)
+        T_true = g.pexp(np.asarray([1.0, -0.5, 0.1, 0.03, -0.02, 0.3]))
+        s = np.stack([rng.uniform(-2, 2, 14), rng.uniform(-1.5, 1.5, 14),
+                      rng.uniform(2.0, 7.0, 14)], -1)
+        P = g.apply(g.inverse(T_true),
+                    g.apply(te._sensor_pose.astype(np.float64), s))
+        Z = np.asarray(te.model.h(s, te._calib_np), np.float64) + \
+            rng.normal(0, [0.3, 0.3, 0.02], (14, 3))
+    statuses = []
+    for max_sigma in (None, 0.3, 0.05, 1e-4):
+        out = []
+        for eng, mod in ((je, jcl), (te, tcl)):
+            eng.parameters = dataclasses.replace(
+                eng.parameters, closure_max_sigma=max_sigma)
+            if eng.state.num_kfs == 0:
+                lms = _seed_center_landmarks(eng, P)
+            voters = [(lm, np.asarray(z, np.float32))
+                      for lm, z in zip(lms, Z)]
+            out.append(mod.bootstrap_closure_edge(eng, 0, voters, None))
+        (sj, Tj, rj, sgj, ij), (st, Tt, rt, sgt, it) = out
+        assert st == sj
+        statuses.append(st)
+        assert rt == pytest.approx(rj, rel=1e-6)
+        assert sgt == pytest.approx(sgj, rel=1e-6)
+        if max_sigma is None:
+            assert rt == 0.0
+        if st != "reject":
+            np.testing.assert_allclose(Tt, Tj, atol=T_ATOL)
+            np.testing.assert_allclose(it, ij, rtol=SIGMA_RTOL)
+    assert statuses[0] == "ok" and statuses[-1] == "reject"

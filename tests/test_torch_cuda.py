@@ -416,3 +416,63 @@ def test_config3_shaped_global_pgo_on_cuda(cuda):
     assert info["converged"] == 1.0
     assert n1 - n0 == info["iters"] >= 1
     assert ate_rmse(G[:, :3], world.gt_poses[:, :3]) < 0.1
+
+
+def _camera_run(device, model, noise, odo, K=60, seed=9):
+    """tests/test_triangulate.py's 60-keyframe world through a mounted
+    monocular or RGB-D camera, no landmark init anywhere."""
+    import srba_tpu_torch as port
+    from srba_tpu_torch.models.observations import CameraCalib
+    from srba_tpu_torch.models.sensor_pose import SensorPoseSE3
+    from srba_tpu_torch.ops.np_lie import CAMERA_SENSOR_POSE_SE3
+    from srba_tpu_torch.utils import datasets as tds
+    calib = CameraCalib.make()
+    world = tds.make_world_loop_3d(num_kfs=K, radius=6.0, num_landmarks=150,
+                                   height_amp=0.3, seed=seed)
+    ds = tds.observe(world, model, calib=calib, noise_std=noise,
+                     sensor_range=7.0, odo_noise_std=odo, seed=seed)
+    eng = port.SrbaEngine(
+        model, calib=calib, sensor_pose=SensorPoseSE3(CAMERA_SENSOR_POSE_SE3),
+        params=port.SrbaParams(max_tree_depth=4, max_optimize_depth=3,
+                               use_robust_kernel=True), device=device)
+    for k, frame in enumerate(ds.frames):
+        eng.define_new_keyframe(
+            [port.Observation(lm_id=m, z=z) for m, z in frame],
+            edge_init={k - 1: ds.odometry[k - 1]} if k else None)
+    G, _ = eng.create_complete_spanning_tree(0)
+    return eng, float(tds.ate_rmse(G[:, :3], world.gt_poses[:, :3]))
+
+
+def test_monocular_run_on_cuda_matches_cpu(cuda):
+    """Config #5's path at a small size: landmarks by deferred two-view
+    triangulation (host numpy on the odometry, so the same landmarks with
+    the same base keyframes on the card as on the CPU), the robust kernel,
+    the kernel on [L, 3, 3]; ATE within 1e-2 m of the CPU's (the windows
+    carry a scale gauge) and under the JAX test's 0.35 m, masters bitwise
+    equal on a rerun."""
+    n0 = _launches(3)
+    eg, ate_g = _camera_run(cuda, "MonocularCamera", 0.2, 0.005)
+    assert _launches(3) > n0
+    ec, ate_c = _camera_run("cpu", "MonocularCamera", 0.2, 0.005)
+    sg, sc = eg.get_rba_state(), ec.get_rba_state()
+    assert eg._lm_id_map == ec._lm_id_map and eg.num_landmarks > 30
+    assert eg.num_pending_landmarks == ec.num_pending_landmarks
+    np.testing.assert_array_equal(sg.lm_base[:sg.num_lms],
+                                  sc.lm_base[:sc.num_lms])
+    assert abs(ate_g - ate_c) < 1e-2 and ate_g < 0.35
+    eg2, _ = _camera_run(cuda, "MonocularCamera", 0.2, 0.005)
+    assert torch.equal(eg.device_master.pose, eg2.device_master.pose)
+    assert torch.equal(eg.device_master.lm, eg2.device_master.lm)
+
+
+def test_rgbd_run_on_cuda_matches_cpu(cuda):
+    """The RGB-D camera with exact data: states within atol 1e-3 of the
+    CPU's and ATE under 1e-2 m."""
+    eg, ate_g = _camera_run(cuda, "RGBDCamera", 0.0, 0.0, K=20, seed=12)
+    ec, ate_c = _camera_run("cpu", "RGBDCamera", 0.0, 0.0, K=20, seed=12)
+    sg, sc = eg.get_rba_state(), ec.get_rba_state()
+    np.testing.assert_allclose(sg.k2k_pose[:sg.num_edges],
+                               sc.k2k_pose[:sc.num_edges], atol=1e-3)
+    np.testing.assert_allclose(sg.lm_state[:sg.num_lms],
+                               sc.lm_state[:sc.num_lms], atol=1e-3)
+    assert ate_g < 1e-2 and ate_c < 1e-2

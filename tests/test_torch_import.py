@@ -74,7 +74,9 @@ def test_unported_names_raise(what):
                 lm_type="Euclidean2D", max_depth=3)
     with pytest.raises(NotImplementedError) as ei:
         if what == "observation":
-            SrbaEngine("MonocularCamera", device="cpu")
+            # Every observation model of the JAX package is ported: a name
+            # neither package has still raises by name through the lookup.
+            SrbaEngine("OmnidirectionalCamera", device="cpu")
         elif what == "group":
             # Both of the JAX package's groups are ported: a name neither
             # package has still raises by name through the lookup.
@@ -93,27 +95,31 @@ def test_unported_names_raise(what):
 
 
 def test_unported_models_and_options_raise():
-    """The monocular and RGB-D camera models and their calibration are not
-    ported: each raises by name."""
+    """The monocular and RGB-D camera models and their calibration are
+    ported: both construct and observe on the device-master path.  A
+    calibration the port does not know still raises by name."""
     from srba_tpu_torch import SrbaEngine
+    from srba_tpu_torch.models.observations import CameraCalib
     from srba_tpu_torch.utils.datasets import make_world_loop_3d, observe
 
     for name in ("MonocularCamera", "RGBDCamera"):
-        with pytest.raises(NotImplementedError, match=name):
-            SrbaEngine(name, device="cpu")
-    with pytest.raises(NotImplementedError, match="MonocularCamera"):
-        observe(make_world_loop_3d(num_kfs=4, num_landmarks=5),
-                "MonocularCamera")
+        eng = SrbaEngine(name, calib=CameraCalib.make(), device="cpu")
+        assert eng.model.name == name and eng.device_master is not None
+        ds = observe(make_world_loop_3d(num_kfs=4, num_landmarks=5), name,
+                     calib=CameraCalib.make())
+        assert len(ds.frames) == 4
     with pytest.raises(NotImplementedError, match="calibrated"):
         SrbaEngine("RangeBearing3D", calib=object(), device="cpu")
 
 
 def test_closure_targets_raise():
     """Closure targets are served (a policy's closure target with too few
-    voters for a fit gets an estimate-seeded edge, as in the JAX package);
-    what still raises is the monocular closure fit, by name."""
+    voters for a fit gets an estimate-seeded edge, as in the JAX package),
+    and the monocular closure fit runs: with fewer than 4 voters it is not
+    applicable ("n/a")."""
     from srba_tpu_torch import Observation, SrbaEngine
     from srba_tpu_torch.engine.closure import bootstrap_closure_edge
+    from srba_tpu_torch.models.observations import CameraCalib
 
     class ClosurePolicy:
         def edges_for_new_kf(self, state, graph, new_kf, obs_lm_ids):
@@ -130,24 +136,30 @@ def test_closure_targets_raise():
     assert [(int(st.k2k_from[e]), int(st.k2k_to[e]))
             for e in info.created_edge_ids] == [(2, 1), (2, 0)]
 
-    class Mono:
-        name = "MonocularCamera"
-        is_pose_landmark = False
-        has_inverse_model = False
-
-    eng.model = Mono
-    with pytest.raises(NotImplementedError, match="_mono_pnp"):
-        bootstrap_closure_edge(eng, 0, [], None)
+    mono = SrbaEngine("MonocularCamera", calib=CameraCalib.make(),
+                      device="cpu")
+    mono.define_new_keyframe([Observation(
+        lm_id=j, z=np.asarray([150.0 + j, 120.0], np.float32)) for j in
+        range(3)])
+    voters = [(lm, np.asarray([150.0, 120.0], np.float32))
+              for lm in range(3)]
+    for lm in range(3):
+        mono._add_landmark(0, np.asarray([0.1 * lm, 0.0, 3.0], np.float32))
+    status, T, _, _, _ = bootstrap_closure_edge(
+        mono, 0, voters, np.asarray([0, 0, 0, 1, 0, 0, 0], np.float32))
+    assert (status, T) == ("n/a", None)
 
 
 @pytest.mark.parametrize("mod", ["srba_tpu_torch.engine.closure",
+                                 "srba_tpu_torch.engine.triangulate",
                                  "srba_tpu_torch.ecps",
                                  "srba_tpu_torch.models.observations",
                                  "srba_tpu_torch.models.sensor_pose",
                                  "srba_tpu_torch.utils.datasets"])
 def test_closure_and_camera_modules_import_without_jax(mod):
-    """Each module config #3 added to or grew in the port, alone in a fresh
-    interpreter, pulls in no jax, jaxlib, flax or srba_tpu module."""
+    """Each module configs #3 and #5 added to or grew in the port, alone in
+    a fresh interpreter, pulls in no jax, jaxlib, flax or srba_tpu
+    module."""
     code = (
         f"import importlib, sys\nimportlib.import_module({mod!r})\n"
         "bad = sorted(m for m in sys.modules\n"

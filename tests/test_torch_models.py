@@ -402,3 +402,143 @@ def test_sensor_pose_se3_matches_jax():
         tsp.SensorPoseSE3([1.0, 2.0, 0.3]).pose_for(tlie.SE3)
     with pytest.raises(ValueError, match="SE2"):
         t.pose_for(tlie.SE2)
+
+
+# -- MonocularCamera, RGBDCamera and CameraCalib ------------------------------
+# Same rules as the stereo camera above: values at atol 1e-6 and rtol 1e-6
+# (pixels reach ~320, where one f32 ulp is 3e-5); tangents at atol 1e-4
+# after dividing by the focal length; the numpy paths bit for bit.
+
+CAMERAS = ["MonocularCamera", "RGBDCamera"]
+
+
+def _camera_calibs():
+    kw = dict(fx=200.0, fy=180.0, cx=160.0, cy=120.0)
+    return jobs.CameraCalib.make(**kw), tobs.CameraCalib.make(**kw)
+
+
+def test_camera_calib_matches_jax():
+    jc, tc = _camera_calibs()
+    for f in ("fx", "fy", "cx", "cy"):
+        assert type(getattr(tc, f)) is np.float32, f
+        assert getattr(tc, f) == getattr(jc, f), f
+    assert tobs.CameraCalib.make() == tobs.CameraCalib(
+        fx=np.float32(200.0), fy=np.float32(200.0), cx=np.float32(160.0),
+        cy=np.float32(120.0))
+    c = tobs.calib_constants(tc)
+    assert all(type(getattr(c, f)) is float and getattr(c, f) == getattr(
+        tc, f) for f in ("fx", "fy", "cx", "cy"))
+
+
+@pytest.mark.parametrize("kind", ["camera", "stereo"])
+def test_calib_from_jax(kind):
+    """``convert.calib_from_jax`` maps either JAX calibration to the port's
+    by its fields; ``stereo_calib_from_jax`` is the same function."""
+    from srba_tpu_torch import convert
+    jc, tc = _camera_calibs() if kind == "camera" else _stereo_calibs()
+    out = convert.calib_from_jax(jc)
+    assert type(out) is type(tc) and out == tc
+    assert convert.stereo_calib_from_jax is convert.calib_from_jax
+
+
+@pytest.mark.parametrize("name", CAMERAS)
+def test_camera_h_and_inverse_match_jax(name):
+    Jm, Tm = jobs.OBSERVATION_MODELS[name], tobs.OBSERVATION_MODELS[name]
+    for attr in ("name", "obs_dim", "z_dim", "lm_dim", "has_inverse_model",
+                 "is_pose_landmark"):
+        assert getattr(Tm, attr) == getattr(Jm, attr), attr
+    assert Tm.pose_group.name == Jm.pose_group.name
+    jc, tc = _camera_calibs()
+    pts = _stereo_points(seed=63)
+    z = np.array(Jm.h(jnp.asarray(pts), jc))
+    out = Tm.h(torch.from_numpy(pts), tobs.calib_constants(tc)).numpy()
+    np.testing.assert_allclose(out, z, rtol=1e-6, atol=1e-6)
+    inv = Tm.inverse(torch.from_numpy(z), tobs.calib_constants(tc)).numpy()
+    np.testing.assert_allclose(
+        inv, np.asarray(Jm.inverse(jnp.asarray(z), jc)), rtol=1e-6,
+        atol=1e-6)
+    # Host (numpy) paths: the same numpy calls, bit for bit.
+    np.testing.assert_array_equal(Tm.h(pts, tc), Jm.h(pts, jc))
+    np.testing.assert_array_equal(Tm.inverse(z, tc), Jm.inverse(z, jc))
+    if name == "RGBDCamera":   # the exact inverse model
+        np.testing.assert_allclose(Tm.inverse(Tm.h(pts, tc), tc), pts,
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("depth", [None, 5.5, "per_point"])
+def test_monocular_inverse_at_depth_matches_jax(depth):
+    """The point along the pixel's ray at the default depth (3 m), a given
+    depth, or a depth per pixel."""
+    JM, TM = jobs.MonocularCamera, tobs.MonocularCamera
+    jc, tc = _camera_calibs()
+    z = np.array(JM.h(jnp.asarray(_stereo_points(seed=64)), jc))
+    if depth == "per_point":
+        depth = np.random.default_rng(65).uniform(1, 9, len(z)).astype(
+            np.float32)
+    ref = np.asarray(JM.inverse(jnp.asarray(z), jc, depth=depth))
+    out = TM.inverse(torch.from_numpy(z), tobs.calib_constants(tc),
+                     depth=None if depth is None else (
+                         float(depth) if np.isscalar(depth)
+                         else torch.from_numpy(depth)))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(TM.inverse(z, tc, depth=depth),
+                                  JM.inverse(z, jc, depth=depth))
+    assert TM.default_depth == JM.default_depth == 3.0
+
+
+@pytest.mark.parametrize("name", CAMERAS)
+@pytest.mark.parametrize("where", ["random", "depth_floor_tie",
+                                   "below_floor"])
+def test_camera_h_jvp_matches_jax_jacfwd(name, where):
+    """Including zc == 1e-4 exactly (the tie of ``max(zc, 1e-4)``, where
+    JAX's AD takes the derivative 0.5) and points behind the floor; the
+    RGB-D depth output is ``zc`` itself, unfloored."""
+    Jm, Tm = jobs.OBSERVATION_MODELS[name], tobs.OBSERVATION_MODELS[name]
+    jc, tc = _camera_calibs()
+    pts = _stereo_points(32, seed=66)
+    if where == "depth_floor_tie":
+        pts[:, 2] = np.float32(1e-4)
+    elif where == "below_floor":
+        pts[:, 2] = np.linspace(-1.0, 5e-5, 32, dtype=np.float32)
+    ref = np.asarray(jax.vmap(jax.jacfwd(lambda p: Jm.h(p, jc)))(
+        jnp.asarray(pts)))
+    tp = torch.from_numpy(pts)
+    val, tan = Tm.h_jvp(tp, torch.eye(3).expand(32, 3, 3),
+                        tobs.calib_constants(tc))
+    assert torch.equal(val, Tm.h(tp, tobs.calib_constants(tc)))
+    np.testing.assert_allclose(tan.numpy() / 200.0, ref / 200.0,
+                               rtol=1e-5, atol=JAC_ATOL)
+
+
+@pytest.mark.parametrize("name", CAMERAS)
+def test_camera_chain_jacobian_with_mount_matches_jax(name):
+    """h(apply(mount_inv, apply(pose, lm))) with respect to the pose and
+    the landmark, as the solver chains it."""
+    from srba_tpu.ops.np_lie import CAMERA_SENSOR_POSE_SE3, NpSE3
+    Jm, Tm = jobs.OBSERVATION_MODELS[name], tobs.OBSERVATION_MODELS[name]
+    jc, tc = _camera_calibs()
+    spinv = NpSE3.inverse(CAMERA_SENSOR_POSE_SE3).astype(np.float32)
+    rng = np.random.default_rng(67)
+    pose = np.array(jlie.SE3.pexp(rng.normal(0, 0.2, (32, 6)).astype(
+        np.float32)))
+    lm = np.stack([rng.uniform(2, 8, 32), rng.uniform(-2, 2, 32),
+                   rng.uniform(-1, 1, 32)], -1).astype(np.float32)
+
+    def f(p, l):
+        return Jm.h(jlie.SE3.apply(spinv, jlie.SE3.apply(p, l)), jc)
+
+    ref_p = np.asarray(jax.vmap(jax.jacfwd(f, 0))(pose, lm))
+    ref_l = np.asarray(jax.vmap(jax.jacfwd(f, 1))(pose, lm))
+    basis = torch.eye(10).expand(32, 10, 10)
+    pt, dpt = tlie.SE3.apply_jvp(torch.from_numpy(pose), torch.from_numpy(lm),
+                                 basis[:, :7], basis[:, 7:])
+    pt, dpt = tlie.SE3.apply_jvp(torch.from_numpy(spinv), pt, None, dpt)
+    _, tan = Tm.h_jvp(pt, dpt, tobs.calib_constants(tc))
+    np.testing.assert_allclose(tan[..., :7].numpy(), ref_p, rtol=1e-5,
+                               atol=JAC_ATOL * 10)
+    np.testing.assert_allclose(tan[..., 7:].numpy(), ref_l, rtol=1e-5,
+                               atol=JAC_ATOL * 10)
+
+
+def test_every_jax_model_is_registered():
+    assert sorted(tobs.OBSERVATION_MODELS) == sorted(jobs.OBSERVATION_MODELS)

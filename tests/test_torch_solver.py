@@ -30,7 +30,14 @@ noise 0.3 (improvements 0.707, 0.925, 0.906, 0.130, 1.5e-4, then noise, so
 state at atol 1e-3 and its errors at rtol 1e-3, because one LM step from
 the odometry seed (total squared error 45,208) leaves the far landmarks
 (depth up to 8 m, disparity ~3 px) ~4e-4 m apart between the frameworks,
-a gap that later steps close to ~3e-5.
+a gap that later steps close to ~3e-5.  And on config #5's kind: a
+mounted MonocularCamera window (landmarks from the JAX package's deferred
+triangulation, odometry noise 0.02, pixel noise 0.2) with the robust
+kernel (improvements 0.72, 0.72, 0.83, 0.83, 0.23, 2.2e-3, then noise, so
+``rel_tol=0.05`` stops on the 6th step), with the stereo tolerances but
+its state at atol 5e-3: one LM step from the seed (total squared error
+7,059) leaves the depths of landmarks seen from two keyframes ~2.1e-3 m
+apart between the frameworks, closed to ~3e-5 by the 6th step.
 """
 
 import dataclasses
@@ -58,6 +65,8 @@ DELTA_ATOL, ERR_RTOL = 1e-4, 1e-4
 R_RTOL, R_ATOL = 1e-4, 1e-3
 STEREO_R_RTOL, STEREO_R_ATOL = 1e-5, 1e-4
 STEREO_STATE_ATOL, STEREO_ERR_RTOL = 1e-3, 1e-3
+MONO_STATE_ATOL = 5e-3
+CAMERAS = ("StereoCamera", "MonocularCamera")
 
 
 @pytest.fixture(scope="module")
@@ -82,18 +91,29 @@ def window():
 
 
 @pytest.fixture(scope="module", params=["RangeBearing3D", "RelativePoses2D",
-                                        "StereoCamera"])
+                                        "StereoCamera", "MonocularCamera"])
 def wide_window(request):
     """A depth-3 window of a 10-KF SE(3) range-bearing or mounted-stereo
-    map, or of a 24-KF graph-SLAM map with closure edges, whose edges still
-    hold their odometry / measurement seeds."""
+    map, of a 12-KF mounted-monocular map (landmarks from the deferred
+    triangulation, the robust kernel on), or of a 24-KF graph-SLAM map with
+    closure edges, whose edges still hold their odometry / measurement
+    seeds."""
     from srba_tpu.models.noise import NoiseIdentity
-    from srba_tpu.models.observations import StereoCalib
+    from srba_tpu.models.observations import CameraCalib, StereoCalib
     from srba_tpu.models.sensor_pose import SensorPoseSE3
     from srba_tpu.ops.np_lie import CAMERA_SENSOR_POSE_SE3
     model = request.param
-    kw = {}
-    if model == "StereoCamera":
+    kw, robust = {}, False
+    if model == "MonocularCamera":
+        calib = CameraCalib.make()
+        world = make_world_loop_3d(num_kfs=60, radius=6.0, num_landmarks=150,
+                                   height_amp=0.3, seed=9)
+        ds = observe(world, model, calib=calib, noise_std=0.2,
+                     sensor_range=7.0, odo_noise_std=0.02, seed=9)
+        nk, noise, rel_tol, robust = 12, 0.2, 0.05, True
+        kw = dict(calib=calib,
+                  sensor_pose=SensorPoseSE3(CAMERA_SENSOR_POSE_SE3))
+    elif model == "StereoCamera":
         calib = StereoCalib.make(fx=200.0, fy=200.0, cx=160.0, cy=120.0,
                                  baseline=0.12)
         world = make_world_loop_3d(num_kfs=20, radius=6.0, num_landmarks=150,
@@ -117,7 +137,8 @@ def wide_window(request):
                                      odo_noise_std=0.01, seed=5)
         nk, noise, rel_tol = 24, 0.002, 1e-3
     eng = JEngine(model, noise=NoiseIdentity(noise),
-                  params=JParams(max_tree_depth=3, max_optimize_depth=3),
+                  params=JParams(max_tree_depth=3, max_optimize_depth=3,
+                                 use_robust_kernel=robust),
                   device_master=False, **kw)
     for k, frame in enumerate(ds.frames[:nk]):
         eng.define_new_keyframe(
@@ -126,7 +147,8 @@ def wide_window(request):
             edge_init={k - 1: ds.odometry[k - 1]} if k else None)
     arrays, _ = build_window(eng.state, eng.graph, nk - 1, 3, 3)
     cfg = dataclasses.replace(eng._solver_cfg, rel_tol=rel_tol)
-    assert cfg.use_sensor_pose == (model == "StereoCamera")
+    assert cfg.use_sensor_pose == (model in CAMERAS)
+    assert cfg.use_robust_kernel == robust
     return cfg, arrays, eng._whitener, eng._sensor_pose_inv, eng.calib
 
 
@@ -275,7 +297,7 @@ def test_linearization_matches_jax_se3_and_graph_slam(wide_window):
     r, J = linearize(tb.edge_pose, tb.lm_state, tb, jac=True)
     assert J.shape == J_ref.shape
     rtol, atol = ((STEREO_R_RTOL, STEREO_R_ATOL)
-                  if cfg.obs_model == "StereoCamera" else (R_RTOL, R_ATOL))
+                  if cfg.obs_model in CAMERAS else (R_RTOL, R_ATOL))
     np.testing.assert_allclose(r.numpy(), r_ref, rtol=rtol, atol=atol)
     np.testing.assert_allclose(J.numpy(), J_ref, rtol=rtol, atol=atol)
     r_only, _ = linearize(tb.edge_pose, tb.lm_state, tb, jac=False)
@@ -303,8 +325,9 @@ def test_solve_matches_jax_se3_and_graph_slam(wide_window, cap):
     je, jl, jinfo = jlm.make_lm_solver(cfg)[0](jb)
     te, tl, tinfo = tlm.make_solver_impl(convert.solver_config_from_jax(
         cfg))[0](convert.window_batch_from_jax(jb, device="cpu"))
-    stereo = cfg.obs_model == "StereoCamera"
-    atol = STEREO_STATE_ATOL if stereo else DELTA_ATOL
+    camera = cfg.obs_model in CAMERAS
+    atol = {"StereoCamera": STEREO_STATE_ATOL,
+            "MonocularCamera": MONO_STATE_ATOL}.get(cfg.obs_model, DELTA_ATOL)
     e0, l0 = arrays.edge_pose, arrays.lm_state
     np.testing.assert_allclose(te.numpy() - e0, np.asarray(je) - e0,
                                atol=atol)
@@ -314,12 +337,12 @@ def test_solve_matches_jax_se3_and_graph_slam(wide_window, cap):
     tinfo = {k: float(v) for k, v in tinfo.items()}
     for k in ("err_init", "err_final"):
         assert tinfo[k] == pytest.approx(
-            jinfo[k], rel=STEREO_ERR_RTOL if stereo else ERR_RTOL), k
+            jinfo[k], rel=STEREO_ERR_RTOL if camera else ERR_RTOL), k
     for k in ("iters", "lam", "num_obs"):
         assert tinfo[k] == jinfo[k], (k, tinfo, jinfo)
     assert tinfo["err_final"] < tinfo["err_init"]
     expect = {"RangeBearing3D": 3, "RelativePoses2D": 2,
-              "StereoCamera": 5}[cfg.obs_model]
+              "StereoCamera": 5, "MonocularCamera": 6}[cfg.obs_model]
     assert tinfo["iters"] == (cap if cap is not None else expect)
     if cfg.obs_model == "RelativePoses2D":
         # Pose landmarks are fixed (lm_opt = 0): the state never moves.
