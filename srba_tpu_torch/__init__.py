@@ -17,3 +17,10 @@ from srba_tpu_torch.engine.engine import (  # noqa: F401
     TNewKeyFrameInfo,
 )
 from srba_tpu_torch.ops.lie import SE2, SE3  # noqa: F401
+from srba_tpu_torch.solver.lm import (  # noqa: F401
+    SolverConfig,
+    WindowBatch,
+    get_solver,
+    make_lm_solver,
+)
+from srba_tpu_torch.solver.window import build_window, write_back  # noqa: F401

@@ -14,10 +14,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from srba_tpu_torch.ecps import ECPS
 from srba_tpu_torch.engine.device_master import DeviceMaster
 from srba_tpu_torch.engine.state import ProblemState
+from srba_tpu_torch.models.noise import NoiseConstantMatrix, NoiseIdentity
 from srba_tpu_torch.models.observations import (CameraCalib, StereoCalib,
                                                 calib_constants)
+from srba_tpu_torch.utils.registry import lookup
 from srba_tpu_torch.solver.lm import SolverConfig, WindowBatch
 
 
@@ -82,3 +85,26 @@ def device_master_from_jax(jdm, device="cuda") -> DeviceMaster:
     dm._pend_lms = [np.array(r) for r in jdm._pend_lms]
     dm.step_seq, dm.mirror_seq = jdm.step_seq, jdm.mirror_seq
     return dm
+
+
+def ecp_from_jax(jecp):
+    """JAX edge-creation policy -> the port's policy of the same name with
+    the same fields; a stateful one (``LocalAreasVar1``) carries its area
+    state across through ``get_state``/``set_state``."""
+    cls = lookup(ECPS, jecp.name, "edge-creation policy")
+    out = cls(**{f.name: getattr(jecp, f.name)
+                 for f in dataclasses.fields(jecp)})
+    if hasattr(jecp, "get_state"):
+        out.set_state(copy.deepcopy(jecp.get_state()))
+    return out
+
+
+def noise_from_jax(jn):
+    """JAX ``NoiseIdentity`` / ``NoiseConstantMatrix`` -> the port's (same
+    parameters, so the same whitener bit for bit)."""
+    if jn.name == "constant_matrix":
+        return NoiseConstantMatrix(np.array(jn.cov))
+    if jn.name == "identity":
+        return NoiseIdentity(jn.std)
+    raise NotImplementedError(
+        f"noise model {jn.name!r} is not ported to srba_tpu_torch yet")

@@ -207,13 +207,7 @@ class DeviceMaster:
         wire = np.concatenate([
             rows, obs_z.ravel(),
             np.concatenate([offsets, cap, ints]).view(np.float32)])
-        if self._whitener_dev is None:
-            self._whitener_dev = torch.as_tensor(
-                np.asarray(whitener, np.float32), device=self.device)
-            self._spinv_dev = torch.as_tensor(
-                np.asarray(sensor_pose_inv, np.float32), device=self.device)
-            # Python floats: kernel arguments, no per-step upload.
-            self._calib_dev = calib_constants(calib)
+        self.ensure_operands(whitener, sensor_pose_inv, calib)
         fn = make_master_step(cfg)  # global per-config cache
         E, L, N = len(edge_ids), len(lm_ids), len(obs_lm)
         self.pose, self.prior, self.lm, info = fn(
@@ -222,6 +216,17 @@ class DeviceMaster:
             E, L, N, pad_e, pad_l, obs_z.shape[1])
         self.step_seq += 1
         return LazyInfo(info)
+
+    def ensure_operands(self, whitener, sensor_pose_inv, calib) -> None:
+        """Upload the engine's per-run solver operands once (the whitener
+        and the inverse sensor pose; the calibration as Python floats,
+        kernel arguments with no per-step upload)."""
+        if self._whitener_dev is None:
+            self._whitener_dev = torch.as_tensor(
+                np.asarray(whitener, np.float32), device=self.device)
+            self._spinv_dev = torch.as_tensor(
+                np.asarray(sensor_pose_inv, np.float32), device=self.device)
+            self._calib_dev = calib_constants(calib)
 
     def fence(self) -> None:
         """Wait for all queued device work WITHOUT downloading anything."""

@@ -17,8 +17,12 @@ rejected areas cool down), odometry/dead-reckoned edge seeds, and the
 global-map entry points ``optimize_global`` (the global pose-graph
 optimization over all kf2kf edges, periodic or terminal, written back into
 the device masters) and ``bfs_visitor``.  That is what configs #1-#5 run.
-The host-window and mesh paths are not ported yet and raise by name;
-``refine_map`` is not ported yet.
+Beside it: the host-window mode (``device_master=False``: the host state
+is authoritative, each window is uploaded, solved and written back),
+``optimize_edges`` (an explicit list of unknowns), and the map-parallel
+``refine_map`` (block-coordinate sweeps of many windows in one batched
+solve, :mod:`srba_tpu_torch.solver.multi_window`).  The mesh paths are not
+ported yet and raise by name.
 
 Per keyframe the host does the integer work (allocation, edge-creation
 policy, spanning-tree paths, window selection, closure fits on the host
@@ -50,8 +54,10 @@ from srba_tpu_torch.models.observations import (OBSERVATION_MODELS,
                                                 calib_constants)
 from srba_tpu_torch.models.sensor_pose import SensorPoseNone
 from srba_tpu_torch.ops.np_lie import np_group_for
-from srba_tpu_torch.solver.lm import SolverConfig
-from srba_tpu_torch.solver.window import build_window
+from srba_tpu_torch.solver.lm import SolverConfig, WindowBatch, get_solver
+from srba_tpu_torch.solver.master import INFO_KEYS
+from srba_tpu_torch.solver.window import build_window, write_back
+from srba_tpu_torch.utils.device import resolve_device
 from srba_tpu_torch.utils.profiler import Profiler
 from srba_tpu_torch.utils.registry import lookup
 
@@ -156,10 +162,10 @@ class SrbaEngine:
         mesh=None,
         device="cuda",
     ):
-        if not device_master or mesh is not None:
+        if mesh is not None:
             raise NotImplementedError(
-                "host-window and mesh solves are not ported to "
-                "srba_tpu_torch yet (only the device-master path is)")
+                "mesh (observation-sharded) window solves are not ported to "
+                "srba_tpu_torch yet")
         if calib is not None and not isinstance(calib,
                                                 (CameraCalib, StereoCalib)):
             raise NotImplementedError(
@@ -197,10 +203,14 @@ class SrbaEngine:
         self.graph = KeyframeGraph(self.parameters.max_tree_depth)
         # Device-resident master state: the authoritative copy of edge poses
         # and landmark states lives on ``device``; the host numpy tables
-        # above are a lazily refreshed mirror.
-        self.device_master = DeviceMaster(self.group.dim, self.lm_type.dim,
-                                          device=device)
-        self.device = self.device_master.device
+        # above are a lazily refreshed mirror.  Without it (the host-window
+        # mode) the host tables are authoritative and each window solve
+        # uploads its window and writes the result back.
+        self.device = resolve_device(device)
+        self.device_master = (
+            DeviceMaster(self.group.dim, self.lm_type.dim,
+                         device=self.device)
+            if device_master else None)
 
         self._whitener = np.asarray(
             self.noise.whitener(self.model.obs_dim), np.float32)
@@ -254,14 +264,16 @@ class SrbaEngine:
                   info=None) -> int:
         e = self.state.add_edge(from_kf, to_kf, pose, prior_w=prior_w,
                                 sigma=sigma, info=info)
-        self.device_master.stage_edge(pose, prior_w)
+        if self.device_master is not None:
+            self.device_master.stage_edge(pose, prior_w)
         self.graph.add_edge(from_kf, to_kf)
         return e
 
     def _add_landmark(self, base_kf: int, st: np.ndarray,
                       fixed: bool = False) -> int:
         l = self.state.add_landmark(base_kf, st, fixed=fixed)
-        self.device_master.stage_landmark(st)
+        if self.device_master is not None:
+            self.device_master.stage_landmark(st)
         return l
 
     def sync(self, max_age: int = 0) -> None:
@@ -269,7 +281,10 @@ class SrbaEngine:
         device masters (one download; no-op when clean).  ``max_age``
         accepts a mirror up to that many optimization steps stale, though
         never one from before the last accepted closure's refinement (the
-        barrier: after a closure the map moves wholesale)."""
+        barrier: after a closure the map moves wholesale).  A no-op in the
+        host-window mode, whose host tables are authoritative."""
+        if self.device_master is None:
+            return
         self.device_master.sync_to_host(
             self.state.k2k_pose, self.state.lm_state, max_age=max_age,
             min_seq=self._closure_barrier_seq if max_age else 0)
@@ -277,8 +292,10 @@ class SrbaEngine:
     def fence(self) -> None:
         """Wait for all queued device work WITHOUT downloading state (use
         around timing sections; ``sync`` additionally refreshes the host
-        mirror)."""
-        self.device_master.fence()
+        mirror; a no-op in the host-window mode, whose solves end in a
+        download)."""
+        if self.device_master is not None:
+            self.device_master.fence()
 
     # ------------------------------------------------------------------
     # Core per-frame API
@@ -344,25 +361,25 @@ class SrbaEngine:
                         kf_id, depth,
                         _iters_cap=(0 if closure_active else
                                     self.parameters.incremental_max_iters))
-            else:
+            elif self.device_master is not None:
                 # No solve this frame: still push staged rows to the device
                 # masters so they stay authoritative.
                 self.device_master.flush_append()
 
-            if closure_created:
+            dm = self.device_master   # None in the host-window mode
+            if dm is not None and closure_created:
                 # The refinement step just queued moves the map wholesale:
                 # raise the staleness barrier and start a post-closure
                 # prefetch now.
-                self._closure_barrier_seq = self.device_master.step_seq
-                self.device_master.maybe_prefetch(
-                    self.parameters.closure_mirror_max_age, force=True)
-            else:
+                self._closure_barrier_seq = dm.step_seq
+                dm.maybe_prefetch(self.parameters.closure_mirror_max_age,
+                                  force=True)
+            elif dm is not None:
                 # Steady async prefetch cadence (internally throttled to
                 # every max_age/2 steps): stale-tolerant consumers (closure
                 # fits, the seed cache) take an already-landed copy instead
                 # of a blocking download.
-                self.device_master.maybe_prefetch(
-                    self.parameters.closure_mirror_max_age)
+                dm.maybe_prefetch(self.parameters.closure_mirror_max_age)
         if self.parameters.verbose >= 1:
             print(f"[srba] kf={kf_id} edges+={len(info.created_edge_ids)} "
                   f"opt={info.optimize_results}")
@@ -528,7 +545,8 @@ class SrbaEngine:
             synced = True
         status, T, ratio, sigma, fit_info = bootstrap_closure_edge(
             self, center, voters, init)
-        if self.device_master.dirty and status != "n/a" \
+        if self.device_master is not None and self.device_master.dirty \
+                and status != "n/a" \
                 and ratio <= par.closure_reverify_band:
             # Fresh voter positions flip marginal outcomes in BOTH
             # directions, so accepts, weaks and near rejects all re-verify
@@ -557,7 +575,7 @@ class SrbaEngine:
         they flush after ``closure_pending_flush_age`` keyframes; call this
         before a terminal global refinement so fits cached near the end of
         a sequence are not lost).  Returns the number of edges created.
-        ``optimize_global`` calls it first."""
+        ``optimize_global`` and ``refine_map`` call it first."""
         n = 0
         for c in list(self._closure_pending):
             self._add_pending_closure(c, self.parameters.edge_prior_sigma)
@@ -739,13 +757,20 @@ class SrbaEngine:
 
     def optimize_local_area(self, root_kf: int,
                             win_size: Optional[int] = None,
+                            restrict_edges=None, restrict_lms=None,
                             _iters_cap: int = 0) -> Dict[str, float]:
-        """BFS window around ``root_kf`` -> padded window -> one device
-        step (append + gather + LM+Schur + scatter) (reference
-        ``optimize_local_area``).  Returns a :class:`LazyInfo` (nothing is
-        downloaded until a value is read).  The JAX package's
-        ``restrict_edges``/``restrict_lms`` arguments serve its
-        ``optimize_edges``, which is not ported yet."""
+        """BFS window around ``root_kf`` -> padded window -> LM+Schur ->
+        write back (reference ``optimize_local_area``).  With
+        ``restrict_edges`` / ``restrict_lms`` (sets of global ids) the
+        unknowns are limited to those lists (``optimize_edges``); the others
+        in the window stay fixed and come back bit-identical.
+
+        Device-master mode: one device step (append + gather + solve +
+        scatter), returning a :class:`LazyInfo` (nothing is downloaded until
+        a value is read).  Host-window mode: the window is uploaded, solved
+        by :func:`~srba_tpu_torch.solver.lm.get_solver`'s solver, fetched in
+        one download and written into the host state (profiler scopes
+        ``device_solve`` and ``write_back``), returning a dict of floats."""
         depth = (win_size if win_size is not None
                  else self.parameters.max_optimize_depth)
         master = self.device_master
@@ -754,22 +779,217 @@ class SrbaEngine:
                 self.state, self.graph, root_kf, depth,
                 self.parameters.max_tree_depth,
                 extra_obs_per_lm_cap=self.parameters.extra_obs_per_lm_cap,
-                gather_floats=False)
+                gather_floats=master is None)
         if built is None:
-            master.flush_append()
+            if master is not None:
+                master.flush_append()
             return {"skipped": 1.0}
-        arrays, _ = built
+        arrays, plan = built
 
-        # Append staged rows + gather + LM+Schur + scatter-back in ONE step;
-        # nothing is downloaded (info values are fetched lazily).
-        with self.profiler.scope("device_step"):
-            return master.step(
-                self._solver_cfg, self._whitener, self._sensor_pose_inv,
-                self.calib,
-                arrays.edge_gids, arrays.edge_opt, arrays.lm_gids,
-                arrays.lm_opt, arrays.obs_lm, arrays.obs_valid,
-                arrays.path_edge, arrays.path_sign, arrays.obs_z,
-                iters_cap=_iters_cap)
+        if restrict_edges is not None:
+            arrays.edge_opt *= np.asarray(
+                [g in restrict_edges for g in arrays.edge_gids], np.float32)
+            plan.edge_opt &= np.asarray(
+                [g in restrict_edges for g in plan.edge_ids], bool)
+        if restrict_lms is not None:
+            arrays.lm_opt *= np.asarray(
+                [g in restrict_lms for g in arrays.lm_gids], np.float32)
+            plan.lm_opt &= np.asarray(
+                [g in restrict_lms for g in plan.lm_ids], bool)
+
+        if master is not None:
+            # Append staged rows + gather + LM+Schur + scatter-back in ONE
+            # step; nothing is downloaded (info values are fetched lazily).
+            with self.profiler.scope("device_step"):
+                return master.step(
+                    self._solver_cfg, self._whitener, self._sensor_pose_inv,
+                    self.calib,
+                    arrays.edge_gids, arrays.edge_opt, arrays.lm_gids,
+                    arrays.lm_opt, arrays.obs_lm, arrays.obs_valid,
+                    arrays.path_edge, arrays.path_sign, arrays.obs_z,
+                    iters_cap=_iters_cap)
+
+        with self.profiler.scope("device_solve"):
+            dev = self.device
+
+            def up(a, dtype=torch.float32):
+                return torch.as_tensor(np.asarray(a), dtype=dtype,
+                                       device=dev)
+
+            batch = WindowBatch(
+                edge_pose=up(arrays.edge_pose), edge_opt=up(arrays.edge_opt),
+                lm_state=up(arrays.lm_state), lm_opt=up(arrays.lm_opt),
+                obs_z=up(arrays.obs_z), obs_lm=up(arrays.obs_lm, torch.int32),
+                path_edge=up(arrays.path_edge, torch.int32),
+                path_sign=up(arrays.path_sign), obs_valid=up(arrays.obs_valid),
+                whitener=up(self._whitener),
+                sensor_pose_inv=up(self._sensor_pose_inv),
+                calib=self._calib_dev,
+                edge_prior=up(arrays.edge_prior),
+                edge_prior_w=up(arrays.edge_prior_w),
+                # The runtime LM iteration cap (0 = the full budget).
+                iters_cap=_iters_cap if _iters_cap > 0 else None)
+            solve, _ = get_solver(self._solver_cfg, dev)
+            edge_pose, lm_state, dev_info = solve(batch)
+            # ONE download: the window's state and its info together.
+            flat = torch.cat(
+                [edge_pose.reshape(-1), lm_state.reshape(-1)]
+                + [dev_info[k].to(torch.float32).reshape(1)
+                   for k in INFO_KEYS]).cpu().numpy()
+        n_e, n_l = edge_pose.numel(), lm_state.numel()
+        with self.profiler.scope("write_back"):
+            write_back(self.state, plan,
+                       flat[:n_e].reshape(edge_pose.shape),
+                       flat[n_e: n_e + n_l].reshape(lm_state.shape))
+        return {k: float(v) for k, v in zip(INFO_KEYS, flat[n_e + n_l:])}
+
+    def optimize_edges(self, k2k_edge_ids: Sequence[int],
+                       landmark_ids: Optional[Sequence[int]] = None
+                       ) -> Dict[str, float]:
+        """Explicit-list variant (reference ``optimize_edges``): optimize
+        EXACTLY the given edges (and landmarks, if listed — else every
+        in-window non-fixed landmark), using the observations of the window
+        rooted at the newest keyframe touching the edge set, with the full
+        LM budget."""
+        if not k2k_edge_ids:
+            return {"skipped": 1.0}
+        root = max(max(int(self.state.k2k_from[e]), int(self.state.k2k_to[e]))
+                   for e in k2k_edge_ids)
+        return self.optimize_local_area(
+            root, self.parameters.max_optimize_depth,
+            restrict_edges=set(int(e) for e in k2k_edge_ids),
+            restrict_lms=(None if landmark_ids is None
+                          else set(int(l) for l in landmark_ids)))
+
+    def refine_map(self, sweeps: int = 1, stride: Optional[int] = None,
+                   depth: Optional[int] = None, mesh=None,
+                   prior_scale: float = 0.02) -> Dict[str, float]:
+        """Map-parallel refinement: block-coordinate LM sweeps over the whole
+        map — windows around every ``stride``-th keyframe are solved
+        SIMULTANEOUSLY in one batched solve per phase, each unknown owned by
+        exactly one window per sweep (disjoint writes; see
+        :mod:`srba_tpu_torch.solver.multi_window`).  Each sweep is two
+        red-black phases over a root lattice staggered by half a stride
+        every other sweep.  Requires the device-master mode.
+
+        ``prior_scale`` scales the edge measurement priors' weights inside
+        the sweep windows (the device prior table itself is untouched); the
+        JAX package's docstring gives the measurement behind the default
+        0.02.  ``mesh`` (the window-sharded sweep) is not ported yet.
+        Returns ``{"windows": ...}`` and the last phase's aggregated info
+        (summed errors and observations, largest iterations and lambda)."""
+        from srba_tpu_torch.solver.master import pack_window_ints
+        from srba_tpu_torch.solver.multi_window import (make_sweep_step,
+                                                        make_sweep_step_mesh,
+                                                        plan_sweep_roots)
+
+        if mesh is not None:
+            make_sweep_step_mesh(self._solver_cfg, mesh)   # raises by name
+        dm = self.device_master
+        if dm is None:
+            raise ValueError("refine_map requires the device-master engine "
+                             "mode (device_master=True)")
+        self.flush_pending_closures()
+        dm.flush_append()
+        tree_depth = self.parameters.max_tree_depth
+        depth = depth or self.parameters.max_optimize_depth
+        step = make_sweep_step(self._solver_cfg)
+        dm.ensure_operands(self._whitener, self._sensor_pose_inv, self.calib)
+        # Scale the prior WEIGHT column for the sweep on a copy: dm.prior
+        # keeps the incremental path's priors.
+        prior_in = dm.prior
+        if prior_scale != 1.0:
+            prior_in = dm.prior.clone()
+            prior_in[:, self.group.dim] *= float(prior_scale)
+        info_out: Dict[str, float] = {"windows": 0.0}
+        dev_info = None
+
+        if stride is None:
+            stride = getattr(self.ecp, "submap_size", None) \
+                or self.parameters.max_optimize_depth
+        stride = max(1, int(stride))
+        for si in range(max(1, int(sweeps)) * 2):
+            # Stagger the root lattice between FULL sweeps (offset shifts by
+            # half a stride every other sweep) so window boundaries move;
+            # within a sweep, red-black phases keep adjacent windows from
+            # updating simultaneously (each phase's windows are far apart,
+            # neighbors update one after the other).
+            offset = ((si // 2) % 2) * (stride // 2)
+            all_roots = plan_sweep_roots(self, stride, offset=offset)
+            roots = [all_roots[0::2], all_roots[1::2]][si % 2]
+            wins = self._sweep_windows(roots, depth, tree_depth)
+            if not wins:
+                continue  # this parity phase is empty; others may not be
+
+            # Common bucket shape + stacking.
+            E = max(a.edge_gids.shape[0] for a, _, _ in wins)
+            L = max(a.lm_gids.shape[0] for a, _, _ in wins)
+            N = max(a.obs_z.shape[0] for a, _, _ in wins)
+            W = len(wins)
+            T = 2 * E + 2 * L + 2 * N + 2 * N * tree_depth
+            ints = np.zeros((W, T), np.int32)
+            obs_z = np.zeros((W, N, self.state.z_dim), np.float32)
+
+            def pad_to(a, n):
+                out = np.zeros((n,) + a.shape[1:], a.dtype)
+                out[: a.shape[0]] = a
+                return out
+
+            for wi, (a, e_own, l_own) in enumerate(wins):
+                ints[wi] = pack_window_ints(
+                    pad_to(a.edge_gids, E), pad_to(e_own, E),
+                    pad_to(a.lm_gids, L), pad_to(l_own, L),
+                    pad_to(a.obs_lm, N), pad_to(a.obs_valid, N),
+                    pad_to(a.path_edge, N), pad_to(a.path_sign, N))
+                obs_z[wi, : a.obs_z.shape[0]] = a.obs_z
+                if a.obs_z.shape[0] < N:   # valid-valued padding rows
+                    obs_z[wi, a.obs_z.shape[0]:] = a.obs_z[0]
+            with self.profiler.scope("refine_map_phase"):
+                dm.pose, dm.lm, dev_info = step(
+                    dm.pose, prior_in, dm.lm, ints, obs_z, dm._whitener_dev,
+                    dm._spinv_dev, dm._calib_dev, E, L, N)
+            dm.dirty = True
+            info_out["windows"] += float(W)
+        self._seed_cache = None   # the sweep moved poses wholesale
+        self._closure_barrier_seq = dm.step_seq
+        if dev_info is not None:
+            vals = torch.stack([dev_info[k].to(torch.float32)
+                                for k in INFO_KEYS]).cpu().tolist()
+            info_out.update(zip(INFO_KEYS, vals))
+        return info_out
+
+    def _sweep_windows(self, roots, depth: int, tree_depth: int):
+        """The windows of one sweep phase with their ownership: each
+        window's opt masks cleared on unknowns an earlier root of the phase
+        claimed (first claim wins).  Returns ``[(arrays, edge_own [E],
+        lm_own [L])]`` (f32 masks); windows that own nothing are left
+        out."""
+        wins = []
+        claimed_e: set = set()
+        claimed_l: set = set()
+        cap = self.parameters.extra_obs_per_lm_cap
+        for root in roots:
+            built = build_window(self.state, self.graph, root, depth,
+                                 tree_depth, extra_obs_per_lm_cap=cap,
+                                 gather_floats=False)
+            if built is None:
+                continue
+            arrays, _ = built
+            e_claimed = np.isin(
+                arrays.edge_gids,
+                np.fromiter(claimed_e, np.int32, len(claimed_e)))
+            l_claimed = np.isin(
+                arrays.lm_gids,
+                np.fromiter(claimed_l, np.int32, len(claimed_l)))
+            e_own = (arrays.edge_opt > 0) & ~e_claimed
+            l_own = (arrays.lm_opt > 0) & ~l_claimed
+            if not (e_own.any() or l_own.any()):
+                continue
+            claimed_e.update(arrays.edge_gids[e_own].tolist())
+            claimed_l.update(arrays.lm_gids[l_own].tolist())
+            wins.append((arrays, e_own.astype(np.float32),
+                         l_own.astype(np.float32)))
+        return wins
 
     # ------------------------------------------------------------------
     # Global-map recovery & evaluation
@@ -865,9 +1085,9 @@ class SrbaEngine:
 
         Returns ``(G_opt [K, pose_dim], info)``.  With ``write_back`` the
         relative edge poses are re-derived from the optimized globals
-        (``T_a<-b = inv(G_a) ∘ G_b``) and uploaded into the device masters,
-        so incremental operation continues from the globally consistent
-        map."""
+        (``T_a<-b = inv(G_a) ∘ G_b``) and, in the device-master mode,
+        uploaded into the device masters, so incremental operation continues
+        from the globally consistent map."""
         from srba_tpu_torch.io.export import get_global_graphslam_problem
         from srba_tpu_torch.solver.global_graphslam import (
             PGOConfig, optimize_global_pose_graph)
@@ -877,7 +1097,8 @@ class SrbaEngine:
                 "optimize_global(mesh=...) (the edge-sharded PGO) is not "
                 "ported to srba_tpu_torch yet")
         self.flush_pending_closures()
-        self.device_master.flush_append()
+        if self.device_master is not None:
+            self.device_master.flush_append()
         prob = get_global_graphslam_problem(
             self, with_edge_info=use_edge_info)  # syncs internally
         lam0 = None
@@ -898,11 +1119,12 @@ class SrbaEngine:
             self.state.k2k_pose[: self.state.num_edges] = \
                 self.np_group.compose(self.np_group.inverse(G_opt[a]),
                                       G_opt[b]).astype(np.float32)
-            self.device_master.upload_from_host(
-                self.state.k2k_pose, self.state.lm_state,
-                self.state.num_edges, self.state.num_lms,
-                k2k_prior=self.state.k2k_prior,
-                k2k_prior_w=self.state.k2k_prior_w)
+            if self.device_master is not None:
+                self.device_master.upload_from_host(
+                    self.state.k2k_pose, self.state.lm_state,
+                    self.state.num_edges, self.state.num_lms,
+                    k2k_prior=self.state.k2k_prior,
+                    k2k_prior_w=self.state.k2k_prior_w)
             self._G_dr = [np.asarray(G_opt[k], np.float32)
                           for k in range(self.state.num_kfs)]
             self._seed_cache = None   # poses changed wholesale

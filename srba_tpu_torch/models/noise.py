@@ -1,5 +1,5 @@
-"""Observation-noise models (port of :mod:`srba_tpu.models.noise`; only
-``NoiseIdentity`` so far) — analog of the reference's
+"""Observation-noise models (port of :mod:`srba_tpu.models.noise`:
+``NoiseIdentity`` and ``NoiseConstantMatrix``) — analog of the reference's
 ``options::observation_noise_identity`` / ``observation_noise_constant_matrix``
 (public MRPT/srba layout: ``include/srba/options/obs_noise_*.h``; SURVEY.md §3).
 
@@ -27,3 +27,22 @@ class NoiseIdentity:
 
     def whitener(self, obs_dim: int) -> np.ndarray:
         return np.eye(obs_dim, dtype=np.float32) / self.std
+
+
+class NoiseConstantMatrix:
+    """Full constant covariance shared by all observations (the reference's
+    ``observation_noise_constant_matrix``).  The whitener is host numpy,
+    the same calls as the JAX package's, so the two are bitwise equal."""
+
+    name = "constant_matrix"
+
+    def __init__(self, cov: np.ndarray):
+        self.cov = np.asarray(cov, dtype=np.float64)
+
+    def whitener(self, obs_dim: int) -> np.ndarray:
+        if self.cov.shape != (obs_dim, obs_dim):
+            raise ValueError(f"noise covariance must be {obs_dim}x{obs_dim}, "
+                             f"got {self.cov.shape}")
+        info = np.linalg.inv(self.cov)
+        # W^T W = info  =>  W = chol(info)^T so that |W r|^2 = r^T info r.
+        return np.linalg.cholesky(info).T.astype(np.float32)

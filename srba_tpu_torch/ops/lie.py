@@ -26,6 +26,8 @@ is plain batched tensor arithmetic.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 # Small angle threshold for the exp/log Taylor branches (f32-safe), as in
@@ -169,6 +171,30 @@ def quat_to_matrix(q):
         dim=-1,
     )
     return r.reshape(r.shape[:-1] + (3, 3))
+
+
+def quat_from_yaw_pitch_roll(yaw, pitch, roll):
+    """Z-Y-X intrinsic Euler angles (tensors of one shape) -> quaternion
+    ``[..., 4]`` (MRPT CPose3D convention)."""
+    cy, sy = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    cp, sp = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
+    cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
+    return torch.stack(
+        [
+            cr * cp * cy + sr * sp * sy,
+            sr * cp * cy - cr * sp * sy,
+            cr * sp * cy + sr * cp * sy,
+            cr * cp * sy - sr * sp * cy,
+        ],
+        dim=-1,
+    )
+
+
+def _draw(draw, generator: torch.Generator, device):
+    """``draw(device)`` on the generator's device (where its state lives),
+    then moved to ``device`` (default: the generator's)."""
+    out = draw(generator.device)
+    return out if device is None else out.to(device)
 
 
 # -- quaternion forward mode (tangents only; see the module docstring) ------
@@ -371,6 +397,20 @@ class SE2:
     def normalize(pose):
         return torch.cat([pose[..., :2], wrap_angle(pose[..., 2:3])], dim=-1)
 
+    @staticmethod
+    def rand(generator: torch.Generator, n: int, trans_scale=1.0,
+             dtype=torch.float32, device=None):
+        """``n`` random poses: translations normal with deviation
+        ``trans_scale``, angles uniform in [-pi, pi).  Drawn from
+        ``generator`` (the JAX package's PRNG key) on its device."""
+        def draw(dev):
+            xy = torch.randn((n, 2), generator=generator, dtype=dtype,
+                             device=dev) * trans_scale
+            th = torch.rand((n, 1), generator=generator, dtype=dtype,
+                            device=dev) * (2 * math.pi) - math.pi
+            return torch.cat([xy, th], dim=-1)
+        return _draw(draw, generator, device)
+
 
 # ---------------------------------------------------------------------------
 # SE(3): pose = (tx, ty, tz, qw, qx, qy, qz).  Acts on 3D points.
@@ -427,6 +467,31 @@ class SE3:
     def normalize(pose):
         return torch.cat([pose[..., :3], quat_normalize(pose[..., 3:])],
                          dim=-1)
+
+    @staticmethod
+    def from_xyz_ypr(x, y, z, yaw=0.0, pitch=0.0, roll=0.0,
+                     dtype=torch.float32, device=None):
+        """Pose from a translation and Z-Y-X Euler angles (scalars or
+        tensors of one shape)."""
+        def t(v):
+            return torch.as_tensor(v, dtype=dtype, device=device)
+        return torch.cat([torch.stack([t(x), t(y), t(z)], dim=-1),
+                          quat_from_yaw_pitch_roll(t(yaw), t(pitch),
+                                                   t(roll))], dim=-1)
+
+    @staticmethod
+    def rand(generator: torch.Generator, n: int, trans_scale=1.0,
+             dtype=torch.float32, device=None):
+        """``n`` random poses: translations normal with deviation
+        ``trans_scale``, rotations the exponential of a standard normal
+        rotation vector.  Drawn from ``generator`` on its device."""
+        def draw(dev):
+            t = torch.randn((n, 3), generator=generator, dtype=dtype,
+                            device=dev) * trans_scale
+            w = torch.randn((n, 3), generator=generator, dtype=dtype,
+                            device=dev)
+            return torch.cat([t, quat_exp(w)], dim=-1)
+        return _draw(draw, generator, device)
 
     # -- forward mode (see the module docstring) ---------------------------
     # The values are computed inline by the plain functions' formulas (the
@@ -490,3 +555,12 @@ class SE3:
 
 
 GROUPS = {"SE2": SE2, "SE3": SE3}
+
+
+def se2_to_se3(pose2):
+    """Embed SE(2) poses in SE(3) (z = 0, yaw-only rotation)."""
+    zeros = torch.zeros_like(pose2[..., :1])
+    half = pose2[..., 2:3] * 0.5
+    return torch.cat(
+        [pose2[..., :2], zeros, torch.cos(half), zeros, zeros,
+         torch.sin(half)], dim=-1)

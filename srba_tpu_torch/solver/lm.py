@@ -22,7 +22,12 @@ What differs from the JAX package, and why:
   ``index_add_``: on CUDA ``index_add_`` sums duplicates with atomics in an
   order that changes from run to run, while a matmul of fixed shape is
   bitwise reproducible.  (The JAX package's own pose-side reduction is the
-  same one-hot contraction.)
+  same one-hot contraction.)  The segmented normal equations
+  (``neq="segmented"``, three ``segment_sum``s keyed by path-edge indices
+  in the JAX package) sort their keys once per solve (a stable sort) and
+  then sum each segment's rows in that fixed order
+  (:func:`segment_plan`, :func:`segment_sum`), so reruns are bitwise equal
+  with no process-wide determinism switch.
 * The LM loop runs exactly ``min(iters_cap, max_iters)`` trips, a number the
   host knows, and freezes the state with a device-side ``done`` mask:
   nothing is read back from the device, and the final state, ``iters`` and
@@ -42,6 +47,7 @@ What differs from the JAX package, and why:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -118,8 +124,9 @@ class SolverConfig:
     axis_name: Optional[str] = None
 
 
-PORTED_SOLVERS = {"schur_dense_cholesky": "schur_dense_cholesky"}
-PORTED_NEQ = {"onehot": "onehot"}
+PORTED_SOLVERS = {"schur_dense_cholesky": "schur_dense_cholesky",
+                  "no_schur_dense_cholesky": "no_schur_dense_cholesky"}
+PORTED_NEQ = {"onehot": "onehot", "segmented": "segmented"}
 
 
 def _resolve(cfg: SolverConfig):
@@ -132,6 +139,101 @@ def _resolve(cfg: SolverConfig):
     return (lookup(GROUPS, cfg.pose_group, "pose group"),
             lookup(OBSERVATION_MODELS, cfg.obs_model, "observation model"),
             lookup(LANDMARK_TYPES, cfg.lm_type, "landmark type"))
+
+
+def segment_plan(keys: torch.Tensor, num_segments: int):
+    """The fixed order of a segment sum over ``keys`` (any shape, values in
+    ``[0, num_segments)``): the stable-sort permutation of the flattened
+    keys and the start offset of each segment in it (``num_segments + 1``
+    entries).  Built once per solve: the keys are the window's structure,
+    which no LM iteration changes."""
+    sorted_keys, perm = torch.sort(keys.reshape(-1).to(torch.int64),
+                                   stable=True)
+    bounds = torch.arange(num_segments + 1, dtype=torch.int64,
+                          device=keys.device)
+    return perm, torch.searchsorted(sorted_keys, bounds)
+
+
+def segment_sum(x: torch.Tensor, plan) -> torch.Tensor:
+    """Sum of the rows of ``x`` [M, ...] per segment of ``plan``
+    (:func:`segment_plan`) -> [num_segments, ...]: ``segment_reduce`` over
+    the rows gathered into key order, each segment a contiguous run given
+    by the offsets; an empty segment sums to 0.  Unlike ``index_add_`` on
+    CUDA floats, whose atomics land in scheduling order, the result does
+    not change from run to run (held bitwise on the card by
+    ``chip_smoke.py`` phase 17 and ``tests/test_torch_cuda.py``)."""
+    perm, offsets = plan
+    rows = x.reshape(x.shape[0], -1)[perm]
+    out = torch.segment_reduce(rows, "sum", offsets=offsets, axis=0,
+                               unsafe=True)
+    return out.reshape((offsets.shape[0] - 1,) + tuple(x.shape[1:]))
+
+
+def segment_plans(path_edge: torch.Tensor, obs_lm: torch.Tensor, E: int,
+                  L: int):
+    """The segmented backend's three key orders over W windows
+    (``path_edge [W, N, D]``, ``obs_lm [W, N]``, indices local to each
+    window, keys offset by window): path-edge pairs (W*E*E segments),
+    path edges (W*E), and (landmark, path edge) pairs (W*L*E).  One window
+    is W = 1, offset 0."""
+    W = path_edge.shape[0]
+    w = torch.arange(W, dtype=torch.int64, device=path_edge.device)
+    pe = path_edge.to(torch.int64)                           # [W, N, D]
+    return (
+        segment_plan(w[:, None, None, None] * (E * E)
+                     + pe[..., :, None] * E + pe[..., None, :], W * E * E),
+        segment_plan(w[:, None, None] * E + pe, W * E),
+        segment_plan(w[:, None, None] * (L * E)
+                     + obs_lm.to(torch.int64)[..., None] * E + pe,
+                     W * L * E))
+
+
+def scaled_chol_solve(H: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Dense Cholesky with symmetric Jacobi equilibration, over any leading
+    batch axes: x = S (SHS)^-1 S rhs with S = diag(H)^{-1/2} (see the JAX
+    package for why).  A matrix that is not SPD gives a NaN solution (its
+    row alone, in a batch), as JAX's cho_factor does, so the LM loop
+    rejects the step."""
+    s = torch.rsqrt(torch.clamp_min(torch.diagonal(H, dim1=-2, dim2=-1),
+                                    1e-20))
+    Hs = H * s[..., :, None] * s[..., None, :]
+    # upper=True reads the upper triangle, like cho_factor's default.
+    U, info = torch.linalg.cholesky_ex(Hs, upper=True)
+    x = torch.cholesky_solve((rhs * s)[..., None], U, upper=True)[..., 0]
+    return torch.where((info == 0)[..., None], s * x, torch.nan)
+
+
+def lm_state(cfg: SolverConfig, shape, dtype, device):
+    """The LM loop's starting ``(lam, rej, done, it)``, each of ``shape``
+    (``()`` for one window, ``(W,)`` for a batch)."""
+    return (torch.full(shape, cfg.lam0, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=torch.int32, device=device),
+            torch.zeros(shape, dtype=torch.bool, device=device),
+            torch.zeros(shape, dtype=torch.int32, device=device))
+
+
+def lm_update(cfg: SolverConfig, err, err_new, lam, rej, done, it):
+    """One LM iteration's accept and stop rule, elementwise per window.
+    Returns ``(accept, err, lam, rej, done, it)``; the caller keeps the
+    candidate state where ``accept``."""
+    active = torch.logical_not(done)
+    ok = torch.isfinite(err_new)
+    accept = active & (err_new < err) & ok
+    lam = torch.where(
+        active,
+        torch.where(accept,
+                    torch.clamp_min(lam * cfg.lam_down, cfg.lam_min),
+                    torch.clamp_max(lam * cfg.lam_up, cfg.lam_max)),
+        lam)
+    rej = torch.where(active, torch.where(accept, 0, rej + 1), rej)
+    improved = (err - err_new) > cfg.rel_tol * (err + 1e-12)
+    converged = accept & torch.logical_not(improved)
+    # Stop on: converged accept; repeated rejects; tiny error.
+    stop = converged | (rej >= cfg.max_consec_rejects) | (err <= 1e-12)
+    done = done | (active & stop)
+    err = torch.where(accept, err_new, err)
+    it = it + active.to(torch.int32)
+    return accept, err, lam, rej, done, it
 
 
 def make_linearize(cfg: SolverConfig):
@@ -252,7 +354,14 @@ def make_solver_impl(cfg: SolverConfig):
             err = err + torch.sum(torch.sum(rp * rp, dim=-1) * wp)
         return err
 
-    def _build_normal_eqs(edge_pose, lm_state, b: WindowBatch):
+    def _segment_plans(b: WindowBatch):
+        """The segmented backend's key orders (None for one-hot)."""
+        if cfg.neq != "segmented":
+            return None
+        return segment_plans(b.path_edge[None], b.obs_lm[None],
+                             b.edge_pose.shape[0], b.lm_state.shape[0])
+
+    def _build_normal_eqs(edge_pose, lm_state, b: WindowBatch, plans=None):
         N, od = b.obs_z.shape[0], b.whitener.shape[0]
         E, L = b.edge_pose.shape[0], b.lm_state.shape[0]
         P = E * pdof
@@ -288,16 +397,37 @@ def make_solver_impl(cfg: SolverConfig):
         Hf = seg(torch.einsum("noi,noj->nij", Jl, Jl))         # [L, l, l]
         gf = seg(torch.einsum("noi,no->ni", Jl, r))            # [L, l]
 
-        # Scatter path-edge blocks into the dense window Jacobian with a
-        # one-hot contraction.
-        onehot = (b.path_edge[..., None] == torch.arange(
-            E, device=dev, dtype=b.path_edge.dtype)).to(dt)    # [N, D, E]
-        Jp = torch.einsum("nodp,nde->noep", Jp_blocks, onehot)
-        Jp = Jp * b.edge_opt[None, None, :, None]
-        Jp2 = Jp.reshape(N * od, P)
-        Hp = Jp2.T @ Jp2                                       # [P, P]
-        gp = Jp2.T @ r.reshape(N * od)                         # [P]
-        Hpf = seg(torch.einsum("nop,noi->npi", Jp.reshape(N, od, P), Jl))
+        if plans is None:
+            # Scatter path-edge blocks into the dense window Jacobian with a
+            # one-hot contraction.
+            onehot = (b.path_edge[..., None] == torch.arange(
+                E, device=dev, dtype=b.path_edge.dtype)).to(dt)  # [N, D, E]
+            Jp = torch.einsum("nodp,nde->noep", Jp_blocks, onehot)
+            Jp = Jp * b.edge_opt[None, None, :, None]
+            Jp2 = Jp.reshape(N * od, P)
+            Hp = Jp2.T @ Jp2                                   # [P, P]
+            gp = Jp2.T @ r.reshape(N * od)                     # [P]
+            Hpf = seg(torch.einsum("nop,noi->npi", Jp.reshape(N, od, P),
+                                   Jl))
+        else:
+            # Segmented: per-depth-pair block products reduced by key —
+            # never materializes the [N*od, P] dense Jacobian.  Padded path
+            # slots carry exactly-zero blocks (their step is the identity
+            # whatever the tangent), so their index-0 targets are
+            # unaffected.
+            plan_pp, plan_e, plan_le = plans
+            ldof = Jl.shape[-1]
+            emask = b.edge_opt[b.path_edge.to(torch.int64)]     # [N, D]
+            Jb = Jp_blocks * emask[:, None, :, None]           # [N,od,D,p]
+            Bpp = torch.einsum("nodi,noep->ndeip", Jb, Jb)     # [N,D,D,p,p]
+            Hp = segment_sum(Bpp.reshape(N * D * D, pdof, pdof), plan_pp)
+            Hp = Hp.reshape(E, E, pdof, pdof).permute(0, 2, 1, 3) \
+                .reshape(P, P)
+            gb = torch.einsum("nodi,no->ndi", Jb, r)           # [N, D, p]
+            gp = segment_sum(gb.reshape(N * D, pdof), plan_e).reshape(P)
+            Cpl = torch.einsum("nodi,nol->ndil", Jb, Jl)       # [N,D,p,l]
+            Hpf = segment_sum(Cpl.reshape(N * D, pdof, ldof),
+                              plan_le).reshape(L, P, ldof)
 
         if b.edge_prior is not None:
             # Edge measurement priors: block-diagonal H += w JtJ, g += w Jtr
@@ -314,19 +444,6 @@ def make_solver_impl(cfg: SolverConfig):
             gp = gp + gblk.reshape(P)
         return Hp, gp, Hf, gf, Hpf
 
-    def _scaled_chol_solve(H, rhs):
-        """Dense Cholesky with symmetric Jacobi equilibration:
-        x = S (SHS)^-1 S rhs with S = diag(H)^{-1/2} (see the JAX package
-        for why).  A matrix that is not SPD gives a NaN solution, as JAX's
-        cho_factor does, so the LM loop rejects the step."""
-        s = torch.rsqrt(torch.clamp_min(torch.diagonal(H), 1e-20))
-        Hs = H * s[:, None] * s[None, :]
-        # upper=True reads the upper triangle, like cho_factor's default.
-        U, info = torch.linalg.cholesky_ex(Hs, upper=True)
-        x = torch.cholesky_solve((rhs * s)[:, None], U, upper=True)[:, 0]
-        x = s * x
-        return torch.where(info == 0, x, torch.nan)
-
     def _solve_delta(Hp, gp, Hf, gf, Hpf, lam, b: WindowBatch):
         epm = torch.repeat_interleave(b.edge_opt, pdof)        # [P]
         diag_p = torch.diagonal(Hp)
@@ -336,13 +453,30 @@ def make_solver_impl(cfg: SolverConfig):
         bump = lam * diag_f + cfg.diag_floor + (1.0 - b.lm_opt)[:, None]
         Hf_d = Hf + torch.diag_embed(bump)
 
+        if cfg.solver == "no_schur_dense_cholesky":
+            # Full-system dense Cholesky (no landmark marginalization, so no
+            # SPD block inverse) — the reference's no-Schur solver engine.
+            L, ldof = Hf.shape[0], Hf.shape[-1]
+            P, Q = Hp.shape[0], L * ldof
+            Hpf_full = Hpf.permute(1, 0, 2).reshape(P, Q)
+            Hf_full = torch.zeros((L, ldof, L, ldof), dtype=Hf.dtype,
+                                  device=Hf.device)
+            Hf_full.diagonal(dim1=0, dim2=2).copy_(Hf_d.permute(1, 2, 0))
+            H = torch.cat([torch.cat([Hp_d, Hpf_full], dim=1),
+                           torch.cat([Hpf_full.T, Hf_full.reshape(Q, Q)],
+                                     dim=1)], dim=0)
+            delta = -scaled_chol_solve(H, torch.cat([gp, gf.reshape(Q)]))
+            dp = delta[:P] * epm
+            df = delta[P:].reshape(L, ldof) * b.lm_opt[:, None]
+            return dp.reshape(-1, pdof), df
+
         # The batched SPD inverse: the hand-written CUDA kernel on the card.
         Hf_inv = spd_inverse(Hf_d)                             # [L, l, l]
 
         HpfHi = torch.einsum("lpi,lij->lpj", Hpf, Hf_inv)      # [L, P, l]
         A = Hp_d - torch.einsum("lpj,lqj->pq", HpfHi, Hpf)
         rhs = gp - torch.einsum("lpj,lj->p", HpfHi, gf)
-        dp = -_scaled_chol_solve(A, rhs) * epm                 # [P]
+        dp = -scaled_chol_solve(A, rhs) * epm                 # [P]
         # Back-substitute landmarks: df = Hf_inv (-gf - Hpf^T dp).
         df = torch.einsum(
             "lij,lj->li", Hf_inv,
@@ -360,34 +494,17 @@ def make_solver_impl(cfg: SolverConfig):
                   else min(int(b.iters_cap), cfg.max_iters))
 
         edge, lm, err = b.edge_pose, b.lm_state, err0
-        lam = torch.full((), cfg.lam0, dtype=dt, device=dev)
-        it = torch.zeros((), dtype=torch.int32, device=dev)
-        rej = torch.zeros((), dtype=torch.int32, device=dev)
-        done = torch.zeros((), dtype=torch.bool, device=dev)
+        lam, rej, done, it = lm_state(cfg, (), dt, dev)
+        plans = _segment_plans(b) if it_cap > 0 else None
         for _ in range(it_cap):
-            active = torch.logical_not(done)
-            Hp, gp, Hf, gf, Hpf = _build_normal_eqs(edge, lm, b)
+            Hp, gp, Hf, gf, Hpf = _build_normal_eqs(edge, lm, b, plans)
             dp, df = _solve_delta(Hp, gp, Hf, gf, Hpf, lam, b)
             cand_e, cand_l = _apply(edge, lm, dp, df)
             err_new = _error(cand_e, cand_l, b)
-            ok = torch.isfinite(err_new)
-            accept = active & (err_new < err) & ok
+            accept, err, lam, rej, done, it = lm_update(
+                cfg, err, err_new, lam, rej, done, it)
             edge = torch.where(accept, cand_e, edge)
             lm = torch.where(accept, cand_l, lm)
-            lam = torch.where(
-                active,
-                torch.where(accept,
-                            torch.clamp_min(lam * cfg.lam_down, cfg.lam_min),
-                            torch.clamp_max(lam * cfg.lam_up, cfg.lam_max)),
-                lam)
-            rej = torch.where(active, torch.where(accept, 0, rej + 1), rej)
-            improved = (err - err_new) > cfg.rel_tol * (err + 1e-12)
-            converged = accept & torch.logical_not(improved)
-            # Stop on: converged accept; repeated rejects; tiny error.
-            stop = converged | (rej >= cfg.max_consec_rejects) | (err <= 1e-12)
-            done = done | (active & stop)
-            err = torch.where(accept, err_new, err)
-            it = it + active.to(torch.int32)
         info = {
             "err_init": err0,
             "err_final": err,
@@ -410,3 +527,15 @@ def make_lm_solver(cfg: SolverConfig, device="cuda"):
     dev = resolve_device(device)
     solve, eval_error = make_solver_impl(cfg)
     return (lambda b: solve(b.to(dev)), lambda b: eval_error(b.to(dev)))
+
+
+def get_solver(cfg: SolverConfig, device="cuda"):
+    """Cached :func:`make_lm_solver`: one ``(solve, eval_error)`` pair per
+    ``(cfg, device)``, as the JAX package's ``get_solver`` compiles once
+    per ``cfg``.  ``device="cuda"`` without CUDA raises."""
+    return _cached_solver(cfg, resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_solver(cfg: SolverConfig, device: torch.device):
+    return make_lm_solver(cfg, device)

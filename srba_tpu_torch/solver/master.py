@@ -150,9 +150,11 @@ def make_master_step(cfg: SolverConfig):
             iters_cap=iters_cap)
         new_edge, new_lm, info = solve_impl(batch)
 
-        # -- scatter optimized values back (masked deltas: pad slots add 0) -
-        dp = (new_edge - edge_pose) * edge_opt[:, None]
-        dl = (new_lm - lm_state) * lm_opt[:, None]
+        # -- scatter optimized values back (masked deltas: fixed and pad
+        # slots add exactly 0 — where, not multiply, so that nothing a fixed
+        # slot's solve produced, not even a NaN, reaches the masters) -------
+        dp = torch.where(edge_opt[:, None] > 0, new_edge - edge_pose, 0.0)
+        dl = torch.where(lm_opt[:, None] > 0, new_lm - lm_state, 0.0)
         pose_master.index_add_(0, edge_ids, dp)
         lm_master.index_add_(0, lm_ids, dl)
         return pose_master, prior_master, lm_master, info

@@ -476,3 +476,107 @@ def test_rgbd_run_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(sg.lm_state[:sg.num_lms],
                                sc.lm_state[:sc.num_lms], atol=1e-3)
     assert ate_g < 1e-2 and ate_c < 1e-2
+
+
+def _run_mode(device, frames, odometry, device_master=True, run_local=True):
+    import srba_tpu_torch as port
+    from srba_tpu_torch.models.noise import NoiseIdentity
+    eng = port.SrbaEngine(
+        "RangeBearing2D", noise=NoiseIdentity(0.004),
+        params=port.SrbaParams(max_tree_depth=4, max_optimize_depth=4),
+        device_master=device_master, device=device)
+    for k, frame in enumerate(frames):
+        eng.define_new_keyframe(
+            [port.Observation(lm_id=m, z=z) for m, z in frame],
+            edge_init={k - 1: odometry[k - 1]} if k else None,
+            run_local_optimization=run_local)
+    return eng
+
+
+def _loop_25(seed=3):
+    from srba_tpu_torch.utils.datasets import make_world_loop_2d, observe
+    world = make_world_loop_2d(num_kfs=25, radius=8.0, num_landmarks=60,
+                               seed=seed)
+    return observe(world, "RangeBearing2D", noise_std=0.005,
+                   sensor_range=6.0, odo_noise_std=0.01, seed=seed)
+
+
+def test_host_window_engine_on_cuda_matches_cpu(cuda):
+    """The 25-KF host-window run (tests/test_device_master.py's data) on
+    the card against the CPU (state atol 1e-3), through the kernel, and a
+    bitwise-equal rerun."""
+    ds = _loop_25()
+    n0 = _launches(2)
+    eg = _run_mode("cuda", ds.frames, ds.odometry, device_master=False)
+    assert eg.device_master is None and _launches(2) > n0
+    ec = _run_mode("cpu", ds.frames, ds.odometry, device_master=False)
+    sg, sc = eg.get_rba_state(), ec.get_rba_state()
+    np.testing.assert_allclose(sg.k2k_pose[:sg.num_edges],
+                               sc.k2k_pose[:sc.num_edges], atol=1e-3)
+    np.testing.assert_allclose(sg.lm_state[:sg.num_lms],
+                               sc.lm_state[:sc.num_lms], atol=1e-3)
+    sg2 = _run_mode("cuda", ds.frames, ds.odometry,
+                    device_master=False).get_rba_state()
+    assert np.array_equal(sg.k2k_pose, sg2.k2k_pose)
+    assert np.array_equal(sg.lm_state, sg2.lm_state)
+
+
+def test_refine_map_on_cuda_matches_cpu(cuda):
+    """Three sweeps of the 30-KF odometry map of tests/test_refine_map.py on
+    the card against the CPU (map error rel 1e-3), the kernel launched at
+    [W*L, 2, 2] once per LM iteration of each phase, a bitwise rerun."""
+    from srba_tpu_torch.ops import block_linalg as bl
+    from srba_tpu_torch.utils.datasets import make_world_loop_2d, observe
+    world = make_world_loop_2d(num_kfs=30, radius=8.0, num_landmarks=70,
+                               seed=6)
+    ds = observe(world, "RangeBearing2D", noise_std=0.004, sensor_range=6.0,
+                 odo_noise_std=0.02, seed=6)
+    out = []
+    for device in ("cuda", "cpu", "cuda"):
+        eng = _run_mode(device, ds.frames, ds.odometry, run_local=False)
+        bl.spd_inverse_cuda.launches_by_shape = {}
+        info = eng.refine_map(sweeps=3, stride=3)
+        out.append((eng, info, dict(bl.spd_inverse_cuda.launches_by_shape)))
+    (eg, ig, shapes), (ec, ic, _), (eg2, _, _) = out
+    assert ig["windows"] == ic["windows"] > 0
+    assert shapes and all(d == 2 and B % 64 == 0 for B, d in shapes)
+    assert sum(shapes.values()) == 6 * eg._solver_cfg.max_iters
+    assert eg.eval_overall_squared_error() == pytest.approx(
+        ec.eval_overall_squared_error(), rel=1e-3)
+    assert torch.equal(eg.device_master.pose, eg2.device_master.pose)
+    assert torch.equal(eg.device_master.lm, eg2.device_master.lm)
+
+
+def test_segmented_solve_on_cuda_reruns_bitwise(cuda):
+    """The segmented normal equations on the card: two solves of the same
+    window bitwise equal, and within the one-hot solve's error (rel
+    1e-3)."""
+    import dataclasses
+
+    from srba_tpu_torch.solver.lm import make_lm_solver
+    from srba_tpu_torch.solver.window import build_window
+    ds = _loop_25()
+    eng = _run_mode("cpu", ds.frames, ds.odometry, run_local=False)
+    arrays, _ = build_window(eng.state, eng.graph, 24, 4, 4)
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt)
+    from srba_tpu_torch.solver.lm import WindowBatch
+    batch = WindowBatch(
+        edge_pose=t(arrays.edge_pose), edge_opt=t(arrays.edge_opt),
+        lm_state=t(arrays.lm_state), lm_opt=t(arrays.lm_opt),
+        obs_z=t(arrays.obs_z), obs_lm=t(arrays.obs_lm, torch.int32),
+        path_edge=t(arrays.path_edge, torch.int32),
+        path_sign=t(arrays.path_sign), obs_valid=t(arrays.obs_valid),
+        whitener=t(eng._whitener), sensor_pose_inv=t(eng._sensor_pose_inv),
+        edge_prior=t(arrays.edge_prior),
+        edge_prior_w=t(arrays.edge_prior_w))
+    res = {}
+    for neq in ("segmented", "onehot"):
+        solve, _ = make_lm_solver(
+            dataclasses.replace(eng._solver_cfg, neq=neq), device=cuda)
+        res[neq] = [solve(batch) for _ in range(2 if neq == "segmented"
+                                                else 1)]
+    (e1, l1, i1), (e2, l2, i2) = res["segmented"]
+    assert torch.equal(e1, e2) and torch.equal(l1, l2)
+    assert all(torch.equal(i1[k], i2[k]) for k in i1)
+    assert float(i1["err_final"]) == pytest.approx(
+        float(res["onehot"][0][2]["err_final"]), rel=1e-3)

@@ -85,12 +85,16 @@ def test_unported_names_raise(what):
             make_solver_impl(SolverConfig(**{**base,
                                              "lm_type": "InverseDepth"}))
         elif what == "solver":
+            # Both of the JAX package's solvers are ported: the reference's
+            # sparse-Cholesky engine, which neither package has, still
+            # raises by name.
             make_solver_impl(SolverConfig(
-                **{**base, "solver": "no_schur_dense_cholesky"}))
+                **{**base, "solver": "schur_sparse_cholesky"}))
         elif what == "neq":
-            make_solver_impl(SolverConfig(**{**base, "neq": "segmented"}))
+            make_solver_impl(SolverConfig(**{**base, "neq": "scatter"}))
         else:
-            SrbaEngine("RangeBearing2D", device_master=False, device="cpu")
+            # The host-window mode is ported; the mesh path is not.
+            SrbaEngine("RangeBearing2D", mesh=object(), device="cpu")
     assert "not ported" in str(ei.value)
 
 
@@ -216,3 +220,45 @@ def test_unported_global_pgo_paths_raise():
     eng = SrbaEngine("RelativePoses2D", device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         eng.optimize_global(mesh=object())
+
+
+@pytest.mark.parametrize("mod", ["srba_tpu_torch.solver.multi_window",
+                                 "srba_tpu_torch.solver.lm",
+                                 "srba_tpu_torch.models.kf2kf_poses",
+                                 "srba_tpu_torch.models.noise",
+                                 "srba_tpu_torch.engine.engine",
+                                 "srba_tpu_torch.convert"])
+def test_sweep_and_variant_modules_import_without_jax(mod):
+    """Each module the host-window mode, the solver variants, refine_map,
+    LocalAreasVar1 and NoiseConstantMatrix added to or grew in the port,
+    alone in a fresh interpreter, pulls in no jax, jaxlib, flax or srba_tpu
+    module."""
+    code = (
+        f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                    'srba_tpu'))\n"
+        "print('LEAKED', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_public_entry_points_exported():
+    """The new public names sit where the JAX package puts them."""
+    import srba_tpu_torch as port
+    from srba_tpu_torch import models, solver
+    from srba_tpu_torch.ecps import ECPS, LocalAreasVar1
+    from srba_tpu_torch.ops.lie import SE3, quat_from_yaw_pitch_roll, se2_to_se3
+    from srba_tpu_torch.solver.multi_window import (make_sweep_step,
+                                                    plan_sweep_roots)
+
+    assert port.get_solver is solver.get_solver
+    assert callable(make_sweep_step) and callable(plan_sweep_roots)
+    assert ECPS["local_areas_var1"] is LocalAreasVar1
+    assert {"NoiseConstantMatrix", "KF2KF_POSE_TYPES"} <= set(dir(models))
+    assert callable(SE3.from_xyz_ypr) and callable(se2_to_se3) \
+        and callable(quat_from_yaw_pitch_roll)
+    for name in ("optimize_edges", "refine_map", "optimize_local_area"):
+        assert callable(getattr(port.SrbaEngine, name))

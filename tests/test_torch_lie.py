@@ -357,3 +357,76 @@ def test_camera_sensor_pose_bit_identical_to_jax():
                                   jnp_lie.CAMERA_SENSOR_POSE_SE3)
     np.testing.assert_array_equal(tnp_lie._R_ROBOT_FROM_CAM,
                                   jnp_lie._R_ROBOT_FROM_CAM)
+
+
+# -- pose construction helpers and random poses ------------------------------
+
+def test_ypr_helpers_match_jax():
+    """``quat_from_yaw_pitch_roll``, ``SE3.from_xyz_ypr`` (scalars and
+    batches) and ``se2_to_se3`` against the JAX package at atol 1e-6 (f32
+    trig of half angles up to pi)."""
+    rng = np.random.default_rng(7)
+    ypr = rng.uniform(-np.pi, np.pi, (3, 64)).astype(np.float32)
+    np.testing.assert_allclose(
+        tlie.quat_from_yaw_pitch_roll(*map(_t, ypr)).numpy(),
+        np.asarray(jlie.quat_from_yaw_pitch_roll(*map(jnp.asarray, ypr))),
+        atol=1e-6)
+    xyz = rng.normal(0, 3, (3, 64)).astype(np.float32)
+    np.testing.assert_allclose(
+        tlie.SE3.from_xyz_ypr(*map(_t, xyz), *map(_t, ypr)).numpy(),
+        np.asarray(jlie.SE3.from_xyz_ypr(*map(jnp.asarray, xyz),
+                                         *map(jnp.asarray, ypr))),
+        atol=1e-6)
+    for args in [(1.0, -2.0, 0.5), (1.0, -2.0, 0.5, 0.3), (0, 0, 0, 0.1,
+                                                           -0.2, 3.0)]:
+        t = tlie.SE3.from_xyz_ypr(*args)
+        assert t.shape == (7,) and t.dtype == torch.float32
+        np.testing.assert_allclose(t.numpy(),
+                                   np.asarray(jlie.SE3.from_xyz_ypr(*args)),
+                                   atol=1e-6)
+    p2 = _poses(64, seed=8)
+    np.testing.assert_allclose(tlie.se2_to_se3(_t(p2)).numpy(),
+                               np.asarray(jlie.se2_to_se3(jnp.asarray(p2))),
+                               atol=1e-6)
+    # The embedding commutes with composition (z = 0, yaw-only rotation),
+    # up to the quaternion's sign.
+    a, b = _t(p2[:32]), _t(p2[32:])
+    lhs = tlie.se2_to_se3(tlie.SE2.compose(a, b))
+    rhs = tlie.SE3.compose(tlie.se2_to_se3(a), tlie.se2_to_se3(b))
+    np.testing.assert_allclose(lhs[:, :3].numpy(), rhs[:, :3].numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(tlie.quat_to_matrix(lhs[:, 3:]).numpy(),
+                               tlie.quat_to_matrix(rhs[:, 3:]).numpy(),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("group", ["SE2", "SE3"])
+def test_rand_is_valid_and_reproducible(group):
+    """``rand`` draws from a ``torch.Generator`` where JAX takes a PRNG key:
+    the bits differ from JAX's, so it is held to validity — wrapped angles
+    or unit quaternions, the ``trans_scale`` spread — and to
+    reproducibility under one seed."""
+    g = tlie.GROUPS[group]
+    n, scale = 4000, 3.0
+    a = g.rand(torch.Generator().manual_seed(5), n, trans_scale=scale)
+    b = g.rand(torch.Generator().manual_seed(5), n, trans_scale=scale)
+    c = g.rand(torch.Generator().manual_seed(6), n, trans_scale=scale,
+               device="cpu")
+    assert a.shape == (n, g.dim) and a.dtype == torch.float32
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    t = a[:, : 2 if group == "SE2" else 3]
+    assert abs(float(t.std()) / scale - 1.0) < 0.05
+    assert abs(float(t.mean())) < 0.2
+    if group == "SE2":
+        th = a[:, 2]
+        assert float(th.min()) >= -np.pi and float(th.max()) < np.pi
+        assert float(th.abs().max()) > 3.0          # spans the circle
+        np.testing.assert_allclose(tlie.SE2.normalize(a).numpy(), a.numpy(),
+                                   atol=1e-6)
+    else:
+        np.testing.assert_allclose(
+            torch.linalg.vector_norm(a[:, 3:], dim=-1).numpy(), 1.0,
+            atol=1e-6)
+    assert torch.isfinite(a).all()
+    assert g.rand(torch.Generator().manual_seed(5), 3,
+                  dtype=torch.float64).dtype == torch.float64

@@ -542,3 +542,106 @@ def test_camera_chain_jacobian_with_mount_matches_jax(name):
 
 def test_every_jax_model_is_registered():
     assert sorted(tobs.OBSERVATION_MODELS) == sorted(jobs.OBSERVATION_MODELS)
+
+
+# -- NoiseConstantMatrix and the kf2kf pose types ----------------------------
+
+_COVS = {"RangeBearing2D": [[4e-4, 1e-4], [1e-4, 9e-4]],
+         "StereoCamera": np.diag([0.09, 0.09, 0.16, 0.16]) + 0.02}
+
+
+@pytest.mark.parametrize("name", sorted(_COVS))
+def test_noise_constant_matrix_whitener_bitwise(name):
+    """The whitener is host numpy (inverse, Cholesky, transpose) — the same
+    calls as the JAX package's, so bit for bit its value; ``noise_from_jax``
+    carries the model across."""
+    from srba_tpu_torch import convert
+    cov = np.asarray(_COVS[name])
+    d = cov.shape[0]
+    jn, tn = jnoise.NoiseConstantMatrix(cov), tnoise.NoiseConstantMatrix(cov)
+    assert tn.name == jn.name == "constant_matrix"
+    np.testing.assert_array_equal(tn.whitener(d), jn.whitener(d))
+    assert tn.whitener(d).dtype == np.float32
+    w = tn.whitener(d).astype(np.float64)
+    np.testing.assert_allclose(w.T @ w, np.linalg.inv(cov), rtol=1e-5)
+    np.testing.assert_array_equal(
+        convert.noise_from_jax(jn).whitener(d), jn.whitener(d))
+    np.testing.assert_array_equal(
+        convert.noise_from_jax(jnoise.NoiseIdentity(0.3)).whitener(d),
+        jnoise.NoiseIdentity(0.3).whitener(d))
+    with pytest.raises(ValueError, match="covariance"):
+        tn.whitener(d + 1)
+
+
+def test_window_with_constant_matrix_noise_matches_jax():
+    """A window whitened by a correlated constant covariance, solved by
+    both packages: errors at rtol 1e-4, states at atol 1e-4, ``iters``
+    exactly (the solver tests' tolerances; ``rel_tol`` 0.3 stops on a
+    decisive step)."""
+    import dataclasses
+
+    from srba_tpu import Observation as JObservation
+    from srba_tpu import SrbaEngine as JEngine
+    from srba_tpu import SrbaParams as JParams
+    from srba_tpu.solver import lm as jlmsolver
+    from srba_tpu.solver.window import build_window
+    from srba_tpu.utils.datasets import make_world_loop_2d, observe
+    from srba_tpu_torch import convert
+    from srba_tpu_torch.solver import lm as tlmsolver
+
+    world = make_world_loop_2d(num_kfs=25, radius=6.0, num_landmarks=60,
+                               seed=7)
+    ds = observe(world, "RangeBearing2D", noise_std=0.02, sensor_range=5.0,
+                 odo_noise_std=0.03, seed=7)
+    eng = JEngine("RangeBearing2D",
+                  noise=jnoise.NoiseConstantMatrix(_COVS["RangeBearing2D"]),
+                  params=JParams(max_tree_depth=3, max_optimize_depth=3),
+                  device_master=False)
+    for k, frame in enumerate(ds.frames[:10]):
+        eng.define_new_keyframe(
+            [JObservation(lm_id=m, z=z) for m, z in frame],
+            run_local_optimization=False,
+            edge_init={k - 1: ds.odometry[k - 1]} if k else None)
+    arrays, _ = build_window(eng.state, eng.graph, 9, 3, 3)
+    np.testing.assert_array_equal(
+        eng._whitener,
+        tnoise.NoiseConstantMatrix(_COVS["RangeBearing2D"]).whitener(2))
+    cfg = dataclasses.replace(eng._solver_cfg, rel_tol=0.3)
+    jb = jlmsolver.WindowBatch(
+        edge_pose=jnp.asarray(arrays.edge_pose),
+        edge_opt=jnp.asarray(arrays.edge_opt),
+        lm_state=jnp.asarray(arrays.lm_state),
+        lm_opt=jnp.asarray(arrays.lm_opt), obs_z=jnp.asarray(arrays.obs_z),
+        obs_lm=jnp.asarray(arrays.obs_lm),
+        path_edge=jnp.asarray(arrays.path_edge),
+        path_sign=jnp.asarray(arrays.path_sign),
+        obs_valid=jnp.asarray(arrays.obs_valid),
+        whitener=jnp.asarray(eng._whitener),
+        sensor_pose_inv=jnp.asarray(eng._sensor_pose_inv),
+        edge_prior=jnp.asarray(arrays.edge_prior),
+        edge_prior_w=jnp.asarray(arrays.edge_prior_w))
+    js, _ = jlmsolver.make_lm_solver(cfg)
+    je, jl, ji = js(jb)
+    ts, _ = tlmsolver.make_lm_solver(convert.solver_config_from_jax(cfg),
+                                     device="cpu")
+    te, tl, ti = ts(convert.window_batch_from_jax(jb, device="cpu"))
+    for k in ("err_init", "err_final"):
+        assert float(ti[k]) == pytest.approx(float(ji[k]), rel=1e-4)
+    assert int(ti["iters"]) == int(ji["iters"]) >= 2
+    assert float(ti["err_final"]) < float(ti["err_init"])
+    np.testing.assert_allclose(te.numpy(), np.asarray(je), atol=1e-4)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+
+
+def test_kf2kf_pose_types():
+    from srba_tpu.models import kf2kf_poses as jk
+    from srba_tpu_torch import models as tmodels
+    from srba_tpu_torch.models import kf2kf_poses as tk
+    assert tmodels.KF2KF_POSE_TYPES is tk.KF2KF_POSE_TYPES
+    assert sorted(tk.KF2KF_POSE_TYPES) == sorted(jk.KF2KF_POSE_TYPES)
+    for name, g in tk.KF2KF_POSE_TYPES.items():
+        jg = jk.KF2KF_POSE_TYPES[name]
+        assert g is tlie.GROUPS[name]
+        assert (g.name, g.dim, g.dof, g.point_dim) == \
+            (jg.name, jg.dim, jg.dof, jg.point_dim)
+    assert tmodels.NoiseConstantMatrix is tnoise.NoiseConstantMatrix
