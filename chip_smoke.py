@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the srba_tpu_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # phases 1-19
+    python3 chip_smoke.py                  # phases 1-21
     python3 chip_smoke.py --config5-full   # phases 1-3, then config #5
                                            # unreduced (5000 keyframes)
+    python3 chip_smoke.py --bucket-pairs   # phases 1-3, then the window
+                                           # variants on configs #1, #2
 
 Phases (any failure raises and the script exits non-zero):
 
 1. card and flags: the card's name and power limit, torch version, TF32 off;
-2. build of the hand-written CUDA kernel (SPD block inverse) from source,
-   with nvcc's ``-Xptxas -v`` registers, shared memory and spills per
-   kernel, and the blocks each CTA takes;
+2. build of the native C++ window builder (its g++ command, library and
+   hash; from here on every device-master engine the script, the CLI or a
+   tutorial makes must build its windows with it) and of the hand-written
+   CUDA kernel (SPD block inverse) from source, with nvcc's ``-Xptxas -v``
+   registers, shared memory and spills per kernel, and the blocks each
+   CTA takes;
 3. the kernel against its plain torch version on the card, at the solver's
    shapes, the edges of a CTA's blocks and a view one block into a stack,
    with a SHA-256 of each output; then at the eight measured shapes
@@ -50,7 +55,8 @@ Phases (any failure raises and the script exits non-zero):
 12. config #3 end to end (stereo SE(3) with the camera mounted on the
    robot, local-areas edge policy, loop closures bootstrapped from the
    re-observed landmarks; bench.py's data and parameters, 500 keyframes):
-   a warm pass and a timed pass of the whole run, KF/s, edges with the
+   a warm pass and a timed pass of the whole run, KF/s, window buckets,
+   edges with the
    closure edges apart, closure fits by outcome and weak fits flushed, the
    kernel's launches by shape, the profiler table with the host mirror's
    prefetch hits and misses, the two passes' masters bitwise equal, the
@@ -100,12 +106,38 @@ Phases (any failure raises and the script exits non-zero):
 19. the adaptive ``LocalAreasVar1`` policy on tests/test_ecps.py's
    two-revolution loop (80 keyframes) on the card and on the CPU:
    identical centers, keyframe areas and edges, ATE bound, at most one
-   center opened on the second revolution, closure edges.
+   center opened on the second revolution, closure edges;
+20. the ``srba_slam_torch`` CLI in this process
+   (``srba_tpu_torch.cli.main``): (a) config #1's data written as dataset
+   and ground-truth files and run with phase 5's engine and every output
+   (metrics, g2o, scene JSON, HTML, checkpoint, profile): phase 5's
+   edges, landmarks, ATE and kernel launches by shape, and its state
+   bitwise when the files round-trip exactly; (b) stopped at KF 50 with a
+   checkpoint and resumed to KF 100 (ATE within 0.01 m of (a)), and the
+   checkpoint loaded on the card and saved again bitwise; (c) (a)'s
+   exported map read back, ``--pgo-g2o`` on phase 19's var1 map (a loop:
+   certified after at least one LM iteration, the error lower), then on
+   phase 9's
+   problem written as g2o text (read back equal to phase 9's arrays): the
+   iterations, certification and error of the same solve on phase 9's
+   arrays (the CLI's settings are the JAX CLI's, not bench_pgo's), and
+   phase 9's error beside it, the kernel on
+   ``[32768, 6, 6]`` held against its plain version on that solve's
+   stacks;
+21. the six tutorials (``srba_tpu_torch/examples``), ``main(device=
+   "cuda")`` at their own sizes, each with its wall time.
 
 With ``--config5-full`` phases 4-15 are skipped and config #5 runs as
 ``bench.py``'s ``bench_config5`` does (5000 keyframes, periodic solves
 every 1250, the terminal solve, ATE bound 1.0 m), printing bench's report
 line.
+
+With ``--bucket-pairs`` phases 4-21 are skipped and configs #1 and #2 run
+four rounds each of three window variants, interleaved: the native core
+padded by the engine's ratchet (the default), the Python builder with the
+same ratchet (no g++), and the native core with no ratchet (each window at
+its own bucket); each run's KF/s, mean ``device_step`` and ``window_build``
+and buckets, and the means per variant.
 
 Every phase prints its wall time.  The line before the last is the card as
 ``nvidia-smi`` names it; the JSON line before that lists the kernels; the
@@ -167,6 +199,9 @@ KERNEL_BLOCK_RTOL = 2e-4
 # tests/test_torch_e2e_rb2d.py (and _rb3d.py, _graphslam.py).
 CPU_AGREE_ATOL = 1e-3
 WARMUP_KFS, AGREE_KFS = 10, 20
+# --bucket-pairs: rounds of the three window variants per config, the
+# first a warm-up.
+BUCKET_PAIR_ROUNDS = 4
 # Config #3, CUDA vs CPU.  Its windows have near-flat directions and its LM
 # runs 3 iterations per keyframe, so the two devices' roundings take the
 # state apart along them within the first 20 keyframes (PERF.md): the runs
@@ -198,6 +233,12 @@ REFINE_STABLE_SWEEPS, REFINE_STABLE = 2, 1.05
 # loop): ATE < 0.5 m, at most one center opened on the second revolution,
 # at least one closure edge.
 VAR1_KFS, VAR1_ATE_BOUND, VAR1_LATE_CENTERS = 80, 0.5, 1
+# Phase 20 (tests/test_cli_io.py): the resumed run within 0.01 m of the
+# uninterrupted one; the CLI's config #1 run within 1e-3 m of phase 5's
+# (the summary rounds the ATE to 6 decimals).  load_g2o renormalizes every
+# quaternion in float64: a float32 quaternion of phase 9's problem moves by
+# at most a few float32 ulps.
+RESUME_ATE_ATOL, CLI_ATE_ATOL, G2O_QUAT_ATOL = 0.01, 1e-3, 1e-6
 
 
 def log(msg: str) -> None:
@@ -439,6 +480,10 @@ def window_buckets():
         DeviceMaster.step = step
 
 
+def buckets_line(buckets) -> str:
+    return ", ".join(f"{key} x{n}" for key, n in sorted(buckets.items()))
+
+
 def block_rel_diff(out, ref) -> float:
     """The largest over blocks of max|out - ref| / max|ref| in the block."""
     diff = (out - ref).abs().amax(dim=(-2, -1))
@@ -507,7 +552,8 @@ def phase_config(num: int, name: str, card: str, bl):
     _, warm, _ = run_config(cfg, "cuda", WARMUP_KFS)
     log(f"[{num}] {name} warm-up ({WARMUP_KFS} KFs): {warm:.3f} s")
     reset_launch_counts(bl)
-    eng, dt, ate = run_config(cfg, "cuda")
+    with window_buckets() as buckets:
+        eng, dt, ate = run_config(cfg, "cuda")
     launches = launches_by_d(bl)
     dm = eng.device_master
     check(dm.pose.is_cuda and dm.prior.is_cuda and dm.lm.is_cuda,
@@ -520,6 +566,8 @@ def phase_config(num: int, name: str, card: str, bl):
         f"{eng.state.num_edges} edges, spd_inverse kernel launches "
         f"{sum(launches.values())} by block size {launches}, mean "
         f"device_step {mean_device_step_ms(eng):.3f} ms")
+    log(f"[{num}] {name} window steps by padded (E, L, N) and LM "
+        f"iterations: {buckets_line(buckets)}")
     check(ate <= ATE_BOUND[name], f"{name} ATE {ate} > bound")
     log(f"[{num}] {eng.profiler.report()}")
     eng_g, _, ate_g = run_config(cfg, "cuda", AGREE_KFS)
@@ -571,7 +619,8 @@ def pgo20k_problem(K=20000):
 
 def phase_pgo20k(card: str, bl):
     """Phase 9: bench.py's 20k-node SE(3) PGO on the card.  Returns the
-    kernel's launches per block size in the timed call."""
+    kernel's launches per block size in the timed call, the problem and the
+    timed call's info."""
     from srba_tpu_torch.solver.global_graphslam import (
         PGOConfig, optimize_global_pose_graph)
     from srba_tpu_torch.utils.profiler import Profiler
@@ -632,7 +681,7 @@ def phase_pgo20k(card: str, bl):
     check(d_node < PGO_NODE_ATOL and d_err < PGO_ERR_RTOL,
           "20k PGO on CUDA disagrees with the CPU")
     log(f"[9] phase wall time {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, prob, info
 
 
 def phase_config4_pgo(eng, cfg4, card: str, bl):
@@ -791,13 +840,13 @@ def phase_config3(card: str, bl):
     t_phase = time.perf_counter()
     cfg = make_config("config3")
     K = len(cfg[1].frames)
-    with window_buckets() as buckets:
-        eng_w, warm, _ = run_config(cfg, "cuda")
-    log(f"[12] config3 warm pass ({eng_w.num_keyframes} KFs): {warm:.3f} s; "
-        "window steps by padded (E, L, N) and LM iterations: "
-        + ", ".join(f"{key} x{n}" for key, n in sorted(buckets.items())))
+    eng_w, warm, _ = run_config(cfg, "cuda")
+    log(f"[12] config3 warm pass ({eng_w.num_keyframes} KFs): {warm:.3f} s")
     reset_launch_counts(bl)
-    eng, dt, ate = run_config(cfg, "cuda")
+    with window_buckets() as buckets:
+        eng, dt, ate = run_config(cfg, "cuda")
+    log("[12] config3 timed pass: window steps by padded (E, L, N) and LM "
+        f"iterations: {buckets_line(buckets)}")
     launches = launches_by_d(bl)
     by_shape = dict(bl.spd_inverse_cuda.launches_by_shape)
     dm = eng.device_master
@@ -1020,7 +1069,7 @@ def config5_report(tag, eng, K, dt, periodic, by_shape, buckets) -> int:
         f"{eng.device_master.sync_stats}")
     if buckets is not None:
         log(f"{tag} window steps by padded (E, L, N) and LM iterations: "
-            + ", ".join(f"{key} x{n}" for key, n in sorted(buckets.items())))
+            f"{buckets_line(buckets)}")
     log(f"{tag} spd_inverse kernel launches {sum(by_shape.values())} by "
         f"[B, d]: {shapes(by_shape)}")
     log(f"{tag} {eng.profiler.report()}")
@@ -1198,6 +1247,77 @@ def run_config5_full(card: str, bl):
         f"conv={info.get('converged', 0):.0f}")
     log(f"[c5] wall time {time.perf_counter() - t_phase:.1f} s")
     check(ate <= ATE_BOUND["config5"], f"config5 ATE {ate} > bound")
+    return launches
+
+
+class _NoRatchet(dict):
+    """An engine's ``_window_caps`` that keeps nothing: every window is
+    padded to its own bucket (the Python builder's shapes before the
+    ratchet)."""
+
+    def __setitem__(self, key, value):
+        pass
+
+
+@contextmanager
+def engine_variant(variant: str):
+    """Engines made inside build their device-master windows as
+    ``variant`` says: "native" (the default: the native core, padded by
+    the engine's ratchet), "python" (the Python builder, as without g++ or
+    with SRBA_TPU_TORCH_NO_NATIVE; the same shapes) or "shrink" (the native
+    core with no ratchet)."""
+    from srba_tpu_torch.engine.engine import SrbaEngine
+    init = SrbaEngine.__init__
+
+    def made(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        if variant == "python":
+            self.native = None
+        elif variant == "shrink":
+            self._window_caps = _NoRatchet()
+
+    SrbaEngine.__init__ = made
+    try:
+        yield
+    finally:
+        SrbaEngine.__init__ = init
+
+
+def run_bucket_pairs(card: str, bl, device: str = "cuda",
+                     rounds: int = BUCKET_PAIR_ROUNDS) -> dict:
+    """``--bucket-pairs``: configs #1 and #2 (SE(3)) in the three
+    ``engine_variant``s, interleaved in this process, the order rotated
+    each round.  Prints each run's KF/s, mean ``device_step`` and
+    ``window_build``, buckets and launches, then the means per variant
+    over all rounds but the first (a warm-up).  Returns the kernel's
+    launches per block size in the last run of each."""
+    variants = ("native", "python", "shrink")
+    launches, table = {}, {}
+    for name in ("config1", "config2"):
+        cfg = make_config(name)
+        for r in range(rounds):
+            for v in variants[r % 3:] + variants[:r % 3]:
+                reset_launch_counts(bl)
+                with engine_variant(v), window_buckets() as buckets:
+                    eng, dt, ate = run_config(cfg, device)
+                launches[f"{name}_{v}"] = launches_by_d(bl)
+                row = (eng.num_keyframes / dt, mean_device_step_ms(eng),
+                       1e3 * eng.profiler.mean(
+                           "define_new_keyframe.optimize_local_area."
+                           "window_build"))
+                if r > 0:
+                    table.setdefault((name, v), []).append(row)
+                log(f"[bp] {name} {v} round {r} on {card}: "
+                    f"{eng.num_keyframes / dt:.3f} KF/s, mean device_step "
+                    f"{row[1]:.3f} ms, mean window_build {row[2]:.3f} ms, "
+                    f"ATE {ate:.6f} m; buckets {buckets_line(buckets)}; "
+                    f"launches {shapes(bl.spd_inverse_cuda.launches_by_shape)}"
+                    )
+    for (name, v), rows in table.items():
+        m = np.mean(np.asarray(rows), axis=0)
+        log(f"[bp] {name} {v}: mean of rounds 1-{rounds - 1} on {card}: "
+            f"{m[0]:.3f} KF/s, device_step {m[1]:.3f} ms, window_build "
+            f"{m[2]:.3f} ms")
     return launches
 
 
@@ -1499,7 +1619,8 @@ def phase_refine_optimized(eng5, cfg1, card: str):
 
 def phase_var1(card: str, bl):
     """Phase 19: ``LocalAreasVar1`` on the card and on the CPU.  Returns
-    the kernel's launches per block size in the card's run."""
+    the kernel's launches per block size in the card's run and its
+    engine."""
     t_phase = time.perf_counter()
     cfg = make_config("var1")
     reset_launch_counts(bl)
@@ -1528,6 +1649,333 @@ def phase_var1(card: str, bl):
     check(closures >= 1, "[19] var1 created no closure edge")
     log("[19] card and CPU: identical centers, keyframe areas and edges")
     log(f"[19] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches, eng
+
+
+def require_native() -> dict:
+    """From here on every engine the script makes (its own, the CLI's, the
+    tutorials') checks at construction that, in the device-master mode, it
+    builds its windows with the native core; returns the running count of
+    engines checked."""
+    from srba_tpu_torch.engine.engine import SrbaEngine
+    init = SrbaEngine.__init__
+    seen = {"device_master": 0, "host_window": 0}
+
+    def checked(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        if self.device_master is None:
+            seen["host_window"] += 1
+            return
+        check(self.native is not None,
+              "a device-master engine builds its windows without the "
+              "native core")
+        seen["device_master"] += 1
+
+    SrbaEngine.__init__ = checked
+    return seen
+
+
+def run_cli(argv):
+    """``srba_tpu_torch.cli.main(argv)`` in this process, its output
+    captured.  Returns (the summary JSON of its last stdout line, its
+    stderr, seconds to its return and a device synchronize)."""
+    import io
+    from contextlib import redirect_stderr, redirect_stdout
+
+    from srba_tpu_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(out), redirect_stderr(err):
+        rc = cli_main(argv)
+    torch_sync()
+    dt = time.perf_counter() - t0
+    check(rc == 0, f"CLI {argv} exited {rc}: {err.getvalue()[-2000:]}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), \
+        err.getvalue(), dt
+
+
+def checkpoint_arrays(path):
+    with np.load(path, allow_pickle=False) as data:
+        return {k: data[k] for k in data.files}
+
+
+def arrays_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def write_pgo_g2o(prob, path: str) -> None:
+    """A pose-graph problem as ``VERTEX_SE3:QUAT`` / ``EDGE_SE3:QUAT`` text:
+    its values as float32 (what the solver takes) in ``%.9g``, which
+    round-trips float32; identity information."""
+    def f(v):
+        return " ".join(f"{x:.9g}" for x in np.asarray(v, np.float32))
+
+    info = " ".join("1" if a == b else "0" for a in range(6)
+                    for b in range(a, 6))
+    lines = [f"VERTEX_SE3:QUAT {i} {f(p[:3])} {f(p[4:7])} {f(p[3:4])}"
+             for i, p in enumerate(prob["nodes"])]
+    lines += [f"EDGE_SE3:QUAT {e['from']} {e['to']} {f(e['rel_pose'][:3])} "
+              f"{f(e['rel_pose'][4:7])} {f(e['rel_pose'][3:4])} {info}"
+              for e in prob["edges"]]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def phase5_snapshot(eng, ate) -> dict:
+    """What phase 20 compares with phase 5's run (later phases go on with
+    its engine): its engine's configuration, counts, ATE and tables."""
+    st = eng.get_rba_state()
+    rows = {"k": st.num_edges, "l": st.num_lms, "o": st.num_obs}
+    return {"ate": ate, "parameters": copy.deepcopy(eng.parameters),
+            "noise": (eng.noise.name, eng.noise.std), "ecp": eng.ecp.name,
+            "model": eng.model.name, "num_kfs": eng.num_keyframes,
+            "num_edges": st.num_edges, "num_landmarks": eng.num_landmarks,
+            "tables": {t: getattr(st, t)[: rows[t[0]]].copy()
+                       for t in ("k2k_from", "k2k_to", "k2k_pose",
+                                 "lm_base", "lm_state", "obs_z")}}
+
+
+def phase_cli(card: str, bl, cfg1, snap5, pgo20k, pgo20k_info, eng_var1):
+    """Phase 20: the ``srba_slam_torch`` CLI in this process on the card:
+    (a) config #1's data written as dataset files and run with phase 5's
+    engine; (b) stopped at KF 50, checkpointed and resumed; (c)
+    ``--pgo-g2o`` on phase 19's var1 map (``eng_var1``'s export) and on
+    phase 9's problem.  Returns
+    the kernel's launches per block size for (a), (b) and (c)."""
+    import tempfile
+
+    from srba_tpu_torch.cli import _make_engine, build_parser
+    from srba_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from srba_tpu_torch.io.dataset_io import (load_dataset, save_dataset,
+                                              save_ground_truth)
+    from srba_tpu_torch.io.export import save_graphslam_g2o
+    from srba_tpu_torch.io.g2o import load_g2o
+    from srba_tpu_torch.solver.global_graphslam import (
+        PGOConfig, optimize_global_pose_graph)
+
+    t_phase = time.perf_counter()
+    world, ds, model, sigma, _, _ = cfg1
+    launches = {}
+    tmp = tempfile.TemporaryDirectory(prefix="srba_cli_")
+    d = tmp.name
+    data, gt = f"{d}/config1.txt", f"{d}/config1.txt.gt"
+    save_dataset(ds, data)
+    save_ground_truth(world, gt)
+    name, frames, odo = load_dataset(data)
+    exact = (name == model and all(
+        [m for m, _ in fa] == [m for m, _ in fb]
+        and all(np.array_equal(za, zb) for (_, za), (_, zb) in zip(fa, fb))
+        for fa, fb in zip(frames, ds.frames))
+        and all(np.array_equal(a, b) for a, b in zip(odo, ds.odometry)))
+    # Phase 5's engine: bench.py's SrbaParams(max_tree_depth=4,
+    # max_optimize_depth=4) (max_iters 20, the CLI's default is 12) and
+    # NoiseIdentity(0.005); the chain policy is the CLI's default.
+    flags = ["--max-tree-depth", "4", "--max-optimize-depth", "4",
+             "--max-iters", "20", "--obs-noise-std", str(sigma),
+             "--device", "cuda"]
+    probe = _make_engine(build_parser().parse_args(
+        ["--dataset", data, *flags]), name)
+    check(probe.parameters == snap5["parameters"]
+          and (probe.noise.name, probe.noise.std) == snap5["noise"]
+          and probe.ecp.name == snap5["ecp"]
+          and probe.model.name == snap5["model"],
+          "the CLI's engine is not phase 5's")
+    del probe
+    log(f"[20] config #1's dataset written and read back: {len(frames)} "
+        f"KFs, float32 round trip through %.9g exact: {exact}; CLI flags "
+        f"{' '.join(flags)} give phase 5's engine (SrbaParams, "
+        f"NoiseIdentity({sigma}), {snap5['ecp']})")
+
+    # (a) the whole run with every output.
+    out = {k: f"{d}/map.{k}" for k in ("g2o", "json", "html", "npz")}
+    metrics = f"{d}/metrics.jsonl"
+    reset_launch_counts(bl)
+    summary, err, dt = run_cli([
+        "--dataset", data, "--gt-path", gt, *flags, "--json",
+        "--metrics-jsonl", metrics, "--export-g2o", out["g2o"],
+        "--export-scene-json", out["json"], "--export-html", out["html"],
+        "--save-checkpoint", out["npz"], "--profile-stats"])
+    launches["cli_config1"] = launches_by_d(bl)
+    by_shape = dict(bl.spd_inverse_cuda.launches_by_shape)
+    rows = [json.loads(ln) for ln in open(metrics)]
+    log(f"[20a] CLI config #1 on {card}: {json.dumps(summary)}; "
+        f"{summary['num_kfs'] / dt:.2f} KF/s by the call's wall time "
+        f"{dt:.3f} s (the summary's kf_per_sec {summary['kf_per_sec']} "
+        "stops its clock before the last keyframe's device work ends)")
+    log(f"[20a] spd_inverse kernel launches by [B, d]: {shapes(by_shape)} "
+        f"(phase 5: {shapes(snap5['by_shape'])}); {len(rows)} metrics "
+        "rows; "
+        + " ".join(ln for ln in err.splitlines() if "mirror syncs" in ln))
+    ate5 = snap5["ate"]
+    d_ate = abs(summary["ate_rmse"] - ate5)
+    check(summary["num_edges"] == snap5["num_edges"]
+          and summary["num_landmarks"] == snap5["num_landmarks"]
+          and summary["num_kfs"] == snap5["num_kfs"],
+          "the CLI's config #1 run built another problem than phase 5's")
+    check(summary["ate_rmse"] <= ATE_BOUND["config1"],
+          f"CLI config #1 ATE {summary['ate_rmse']} > bound")
+    check(d_ate <= CLI_ATE_ATOL, f"CLI config #1 ATE {summary['ate_rmse']} "
+          f"vs phase 5's {ate5}")
+    check(by_shape == snap5["by_shape"],
+          "the CLI's config #1 run launched the kernel at other shapes or "
+          "counts than phase 5's")
+    check(len(rows) == len(frames) and all(np.isfinite(v) for r in rows
+                                           for v in r.values()),
+          "CLI metrics rows")
+    tables = checkpoint_arrays(out["npz"])
+    same = all(np.array_equal(tables[t], v)
+               for t, v in snap5["tables"].items())
+    log(f"[20a] ATE {summary['ate_rmse']} m vs phase 5's {ate5:.6f} m "
+        f"(|diff| {d_ate:.1e}, atol {CLI_ATE_ATOL}; the summary rounds to "
+        f"6 decimals); the CLI's checkpoint tables bitwise equal to phase "
+        f"5's state: {same}")
+    check(same or not exact, "with an exact dataset round trip the CLI's "
+          "run must equal phase 5's bitwise")
+
+    # (b) stop at KF 50, resume to KF 100.
+    ck50, ck50b = f"{d}/ck50.npz", f"{d}/ck50b.npz"
+    reset_launch_counts(bl)
+    s50, _, dt50 = run_cli(["--dataset", data, *flags, "--json",
+                            "--limit-kfs", "50", "--save-checkpoint", ck50])
+    s100, err_r, dt100 = run_cli(["--dataset", data, "--gt-path", gt, *flags,
+                                  "--json", "--resume-checkpoint", ck50])
+    launches["cli_resume"] = launches_by_d(bl)
+    d_res = abs(s100["ate_rmse"] - summary["ate_rmse"])
+    log(f"[20b] CLI stopped at KF {s50['num_kfs']} ({dt50:.3f} s) and "
+        f"resumed ({err_r.strip().splitlines()[0]}; {dt100:.3f} s): "
+        f"{json.dumps(s100)}; ATE {s100['ate_rmse']} m vs uninterrupted "
+        f"{summary['ate_rmse']} m, |diff| {d_res:.3e} (atol "
+        f"{RESUME_ATE_ATOL}); launches {launches['cli_resume']}")
+    check(s50["num_kfs"] == 50 and s100["num_kfs"] == len(frames),
+          "CLI resume keyframe counts")
+    check(d_res <= RESUME_ATE_ATOL
+          and s100["ate_rmse"] <= ATE_BOUND["config1"],
+          "the resumed CLI run's ATE")
+    eng_l = load_checkpoint(ck50, device="cuda")
+    check(eng_l.device_master.pose.is_cuda, "checkpoint loaded off the card")
+    save_checkpoint(eng_l, ck50b)
+    a, b = checkpoint_arrays(ck50), checkpoint_arrays(ck50b)
+    check(arrays_equal(a, b), "a checkpoint loaded on the card and saved "
+          "again differs from the original")
+    log(f"[20b] the KF-50 checkpoint loaded on the card and saved again: "
+        f"all {len(a)} arrays (meta included) bitwise equal")
+
+    # (c) --pgo-g2o on a map with a loop and on phase 9's problem.  (a)'s
+    # map is a tree (config #1's chain policy), already at its optimum, so
+    # it is only read back; phase 19's var1 map closes its loop with a
+    # closure edge, which the local windows leave inconsistent.
+    prob_a = load_g2o(out["g2o"])
+    check((len(prob_a["nodes"]), len(prob_a["edges"]))
+          == (snap5["num_kfs"], snap5["num_edges"]),
+          "(a)'s exported map.g2o does not read back as its graph")
+    var1_g2o = f"{d}/var1.g2o"
+    save_graphslam_g2o(eng_var1, var1_g2o)
+    reset_launch_counts(bl)
+    sm, _, dtm = run_cli(["--pgo-g2o", var1_g2o, "--json", "--device",
+                          "cuda"])
+    log(f"[20c] (a)'s map.g2o read back: {len(prob_a['nodes'])} nodes, "
+        f"{len(prob_a['edges'])} edges; CLI --pgo-g2o on phase 19's var1 "
+        f"map ({sm['edges']} edges on {sm['nodes']} nodes): {json.dumps(sm)} "
+        f"({dtm:.3f} s)")
+    check(sm["converged"] == 1 and sm["iters"] >= 1
+          and sm["err_final"] < sm["err_init"],
+          "CLI --pgo-g2o on the var1 map")
+    big = f"{d}/pgo20k.g2o"
+    t0 = time.perf_counter()
+    write_pgo_g2o(pgo20k, big)
+    prob = load_g2o(big)
+    nodes9 = np.asarray(pgo20k["nodes"], np.float32)
+    rel = np.stack([e["rel_pose"] for e in prob["edges"]])
+    rel9 = np.stack([e["rel_pose"] for e in pgo20k["edges"]]).astype(
+        np.float32)
+    check([(e["from"], e["to"]) for e in prob["edges"]]
+          == [(e["from"], e["to"]) for e in pgo20k["edges"]]
+          and np.array_equal(prob["nodes"][:, :3], nodes9[:, :3])
+          and np.array_equal(rel[:, :3], rel9[:, :3])
+          and np.all(prob["edge_weights"] == 1.0),
+          "load_g2o does not return phase 9's graph")
+    d_q = max(float(np.abs(prob["nodes"] - nodes9).max()),
+              float(np.abs(rel - rel9).max()))
+    check(d_q <= G2O_QUAT_ATOL, f"load_g2o's quaternions {d_q:.2e} off")
+    log(f"[20c] phase 9's problem written as g2o text and read back in "
+        f"{time.perf_counter() - t0:.2f} s: edges, translations (as the "
+        f"float32 the solver takes) and weights (all 1) bitwise equal; "
+        f"quaternions within {d_q:.2e} (atol {G2O_QUAT_ATOL}: load_g2o "
+        "renormalizes each in float64)")
+    cli_cfg = PGOConfig(group="SE3", chordal_init=True)
+    _, direct = optimize_global_pose_graph(pgo20k, cli_cfg, device="cuda")
+    reset_launch_counts(bl)
+    with pgo_kernel_inputs() as stacks:
+        s20, _, dt20 = run_cli(["--pgo-g2o", big, "--json", "--device",
+                                "cuda"])
+    launches["cli_pgo_g2o"] = launches_by_d(bl)
+    by_shape = dict(bl.spd_inverse_cuda.launches_by_shape)
+    gap9 = abs(s20["err_final"] - pgo20k_info["err_final"]) \
+        / pgo20k_info["err_final"]
+    gap = abs(s20["err_final"] - direct["err_final"]) / direct["err_final"]
+    log(f"[20c] CLI --pgo-g2o on phase 9's problem on {card}: "
+        f"{json.dumps(s20)} ({dt20:.3f} s); kernel launches by [B, d]: "
+        f"{shapes(by_shape)}")
+    # The CLI solves with the JAX package's CLI settings (PGOConfig(group,
+    # chordal_init=True): CG 50, abs_tol_per_edge 5e-6), not bench_pgo's
+    # (CG 100, abs_tol_per_edge 2e-5, which bench.py sets above this
+    # problem's noise floor of ~1.3e-5 per edge).  So it is held to the
+    # same solve on phase 9's arrays, certified or not (the JAX CLI ends
+    # this graph uncertified too: tests/test_torch_g2o.py holds the two
+    # CLIs to each other on its 2000-node cut).
+    log(f"[20c] err_final {s20['err_final']:.6e}, iters {s20['iters']}, "
+        f"converged={s20['converged']}: the same solve (the CLI's "
+        f"PGOConfig(group='SE3', chordal_init=True)) on phase 9's arrays "
+        f"{direct['err_final']:.6e}, iters {direct['iters']:.0f}, "
+        f"converged={direct['converged']:.0f}, rel diff {gap:.3e} (rtol "
+        f"{PGO_ERR_RTOL}); phase 9's own solve (bench_pgo's PGOConfig: no "
+        f"chordal init, CG 100, abs_tol_per_edge 2e-5) "
+        f"{pgo20k_info['err_final']:.6e}, rel diff {gap9:.3e}")
+    check(s20["err_final"] < s20["err_init"], "CLI --pgo-g2o 20k descent")
+    check(gap < PGO_ERR_RTOL
+          and (s20["iters"], s20["converged"])
+          == (int(direct["iters"]), int(direct["converged"])),
+          "CLI --pgo-g2o 20k is not the same solve as on phase 9's arrays")
+    check(set(by_shape) == {(32768, 6)} and by_shape[(32768, 6)] > 0,
+          f"CLI --pgo-g2o 20k kernel shapes {by_shape}")
+    check_kernel_on("[20c]", bl, stacks)
+    tmp.cleanup()
+    log(f"[20] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+TUTORIALS = ("tutorial_global_map_recovery", "tutorial_graph_slam_se2",
+             "tutorial_local_areas_loop_closure", "tutorial_rangebearing_se2",
+             "tutorial_rangebearing_se3", "tutorial_stereo_se3")
+
+
+def phase_tutorials(card: str, bl):
+    """Phase 21: the six tutorials, ``main(device="cuda")`` at their own
+    sizes.  Returns the kernel's launches per block size over all six."""
+    import importlib
+    import io
+    from contextlib import redirect_stdout
+
+    t_phase = time.perf_counter()
+    reset_launch_counts(bl)
+    for name in TUTORIALS:
+        mod = importlib.import_module(f"srba_tpu_torch.examples.{name}")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(out):
+            mod.main(device="cuda")
+        torch_sync()
+        lines = out.getvalue().strip().splitlines()
+        log(f"[21] {name} on {card}: {time.perf_counter() - t0:.3f} s; "
+            f"{' | '.join(lines[-2:])}")
+    launches = launches_by_d(bl)
+    check(sum(launches.values()) > 0, "the tutorials never launched the "
+          "spd_inverse kernel")
+    log(f"[21] spd_inverse kernel launches by [B, d]: "
+        f"{shapes(bl.spd_inverse_cuda.launches_by_shape)}")
+    log(f"[21] phase wall time {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1667,7 +2115,16 @@ def main() -> int:
         "float32_matmul_precision=highest")
 
     # -- 2. kernel build -----------------------------------------------------
+    import srba_tpu_torch.native as native
     from srba_tpu_torch.tools import spd_inverse_bench as kb
+    t0 = time.perf_counter()
+    check(native.get_lib() is not None, "the native window builder did not "
+          "build (no g++?)")
+    info = native.build_info
+    log(f"[2] native window builder built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s: {info['cmd']}; library "
+        f"{info['so']}; source+flags hash {info['digest']}")
+    engines = require_native()
     t0 = time.perf_counter()
     bl.load_kernel_library()
     log(f"[2] spd_inverse kernel built and loaded in "
@@ -1690,6 +2147,10 @@ def main() -> int:
 
     if "--config5-full" in sys.argv[1:]:
         launches = run_config5_full(card, bl)
+        check_flags()
+        return finish(card, times, max_err, launches, t_start)
+    if "--bucket-pairs" in sys.argv[1:]:
+        launches = run_bucket_pairs(card, bl)
         check_flags()
         return finish(card, times, max_err, launches, t_start)
 
@@ -1728,8 +2189,10 @@ def main() -> int:
     _, warm, _ = run_config(cfg1, "cuda", WARMUP_KFS)
     log(f"[5] config #1 warm-up ({WARMUP_KFS} KFs): {warm:.3f} s")
     reset_launch_counts(bl)
-    eng, dt, ate = run_config(cfg1, "cuda")
+    with window_buckets() as buckets:
+        eng, dt, ate = run_config(cfg1, "cuda")
     launches = {"config1": launches_by_d(bl)}
+    snap5 = {"by_shape": dict(bl.spd_inverse_cuda.launches_by_shape)}
     dm = eng.device_master
     check(dm.pose.is_cuda and dm.prior.is_cuda and dm.lm.is_cuda,
           "config #1 masters are not CUDA tensors")
@@ -1740,7 +2203,10 @@ def main() -> int:
         f"{kfs / dt:.2f} KF/s, ATE {ate:.6f} m (bound "
         f"{ATE_BOUND['config1']}), spd_inverse kernel launches "
         f"{sum(launches['config1'].values())} by block size "
-        f"{launches['config1']}")
+        f"{launches['config1']}, mean device_step "
+        f"{mean_device_step_ms(eng):.3f} ms")
+    log(f"[5] window steps by padded (E, L, N) and LM iterations: "
+        f"{buckets_line(buckets)}")
     check(ate <= ATE_BOUND["config1"], f"config #1 ATE {ate} > bound")
     log(f"[5] {eng.profiler.report()}")
     eng_cpu, _, ate_cpu = run_config(cfg1, "cpu")
@@ -1751,6 +2217,7 @@ def main() -> int:
         f"|ATE diff| {d_ate:.3e} (atol {CPU_AGREE_ATOL})")
     check(max(d_edge, d_lm, d_ate) < CPU_AGREE_ATOL,
           "config #1 on CUDA disagrees with the same run on the CPU")
+    snap5.update(phase5_snapshot(eng, ate))
     log(f"[5] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
     # -- 6. determinism -------------------------------------------------------
@@ -1769,7 +2236,7 @@ def main() -> int:
     check_flags()
 
     # -- 9. 20k-node SE(3) PGO, 10. config #4's optimize_global, 11. chordal
-    launches["pgo20k"] = phase_pgo20k(card, bl)
+    launches["pgo20k"], pgo20k, pgo20k_info = phase_pgo20k(card, bl)
     check_flags()
     launches["config4_pgo"] = phase_config4_pgo(eng4, cfg4, card, bl)
     check_flags()
@@ -1803,8 +2270,19 @@ def main() -> int:
                                                           timer, times)
     phase_refine_optimized(eng, cfg1, card)
     check_flags()
-    launches["var1"] = phase_var1(card, bl)
+    launches["var1"], eng_var1 = phase_var1(card, bl)
     check_flags()
+
+    # -- 20. the CLI, 21. the tutorials --------------------------------------
+    launches.update(phase_cli(card, bl, cfg1, snap5, pgo20k, pgo20k_info,
+                              eng_var1))
+    check_flags()
+    launches["tutorials"] = phase_tutorials(card, bl)
+    check_flags()
+    log(f"[21] engines made by the script, the CLI and the tutorials: "
+        f"{engines['device_master']} device-master engines, each building "
+        f"its windows natively; {engines['host_window']} host-window "
+        "engines (the Python builder)")
 
     return finish(card, times, max_err, launches, t_start)
 

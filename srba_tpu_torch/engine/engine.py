@@ -25,10 +25,11 @@ solve, :mod:`srba_tpu_torch.solver.multi_window`).  The mesh paths are not
 ported yet and raise by name.
 
 Per keyframe the host does the integer work (allocation, edge-creation
-policy, spanning-tree paths, window selection, closure fits on the host
-mirror) and the device runs ONE step over the padded window
-(:mod:`srba_tpu_torch.solver.master`); nothing is read back until a caller
-or a closure fit asks for state.
+policy, spanning-tree paths, window selection — in the device-master mode
+by the native C++ core, :mod:`srba_tpu_torch.native`, as the JAX engine
+does — closure fits on the host mirror) and the device runs ONE step over
+the padded window (:mod:`srba_tpu_torch.solver.master`); nothing is read
+back until a caller or a closure fit asks for state.
 """
 
 from __future__ import annotations
@@ -211,6 +212,25 @@ class SrbaEngine:
             DeviceMaster(self.group.dim, self.lm_type.dim,
                          device=self.device)
             if device_master else None)
+        # Native (C++) host graph service (srba_tpu_torch.native): builds
+        # every device-master window (and the refine_map sweep windows);
+        # the Python graph above keeps serving the public traversal APIs.
+        # The Python builder takes its place only where no g++ exists,
+        # SRBA_TPU_TORCH_NO_NATIVE is set or the tree is deeper than the
+        # C++ core's buffers.  The host-window mode keeps the Python
+        # builder, which gathers the window's floats.
+        self.native = None
+        if device_master:
+            from srba_tpu_torch.native import get_lib
+            from srba_tpu_torch.native.core import MAX_TREE_DEPTH, NativeCore
+            if (get_lib() is not None
+                    and self.parameters.max_tree_depth <= MAX_TREE_DEPTH):
+                self.native = NativeCore(self.parameters.max_tree_depth)
+        # The device-master windows' padded (E, L, N) per optimize depth: a
+        # window is padded to at least the last shape at its depth, so
+        # shapes never shrink (the JAX package's ratchet), whichever builder
+        # runs.
+        self._window_caps = {}
 
         self._whitener = np.asarray(
             self.noise.whitener(self.model.obs_dim), np.float32)
@@ -267,6 +287,8 @@ class SrbaEngine:
         if self.device_master is not None:
             self.device_master.stage_edge(pose, prior_w)
         self.graph.add_edge(from_kf, to_kf)
+        if self.native is not None:
+            self.native.add_edge(from_kf, to_kf)
         return e
 
     def _add_landmark(self, base_kf: int, st: np.ndarray,
@@ -274,6 +296,8 @@ class SrbaEngine:
         l = self.state.add_landmark(base_kf, st, fixed=fixed)
         if self.device_master is not None:
             self.device_master.stage_landmark(st)
+        if self.native is not None:
+            self.native.add_landmark(base_kf, fixed)
         return l
 
     def sync(self, max_age: int = 0) -> None:
@@ -316,6 +340,8 @@ class SrbaEngine:
             with prof.scope("alloc"):
                 kf_id = self.state.add_keyframe()
                 self.graph.add_keyframe()
+                if self.native is not None:
+                    self.native.add_keyframe()
                 info.kf_id = kf_id
 
             known_lms = [self._lm_id_map[o.lm_id] for o in observations
@@ -695,12 +721,16 @@ class SrbaEngine:
                 self._lm_id_map[lm_id] = internal
                 oid = -1
                 for kf_b, z_b in buffered:   # replay (this sighting too)
+                    if self.native is not None:
+                        self.native.add_observation(kf_b, internal)
                     oid = self.state.add_observation(kf_b, internal, z_b)
                 return oid
             else:
                 st = self._init_landmark(z, init_rel_pos)
                 internal = self._add_landmark(kf_id, st, fixed=False)
             self._lm_id_map[lm_id] = internal
+        if self.native is not None:
+            self.native.add_observation(kf_id, internal)
         return self.state.add_observation(kf_id, internal, z)
 
     def _batch_landmark_inits(self, observations) -> Dict[int, np.ndarray]:
@@ -775,11 +805,8 @@ class SrbaEngine:
                  else self.parameters.max_optimize_depth)
         master = self.device_master
         with self.profiler.scope("window_build"):
-            built = build_window(
-                self.state, self.graph, root_kf, depth,
-                self.parameters.max_tree_depth,
-                extra_obs_per_lm_cap=self.parameters.extra_obs_per_lm_cap,
-                gather_floats=master is None)
+            built = self._build_window(root_kf, depth,
+                                       self.parameters.max_tree_depth)
         if built is None:
             if master is not None:
                 master.flush_append()
@@ -958,6 +985,28 @@ class SrbaEngine:
             info_out.update(zip(INFO_KEYS, vals))
         return info_out
 
+    def _build_window(self, root: int, depth: int, tree_depth: int):
+        """The window of ``depth`` around ``root``: ``(WindowArrays,
+        WindowPlan)`` or None.  Device-master mode: native where it exists,
+        else the Python builder, both padded by the ratchet per depth.
+        Host-window mode: the Python builder with the window's floats."""
+        cap = self.parameters.extra_obs_per_lm_cap
+        if self.device_master is None:
+            return build_window(self.state, self.graph, root, depth,
+                                tree_depth, extra_obs_per_lm_cap=cap)
+        min_shape = self._window_caps.get(depth)
+        if self.native is not None:
+            built = self.native.build_window(
+                self.state, root, depth, tree_depth, obs_per_lm_cap=cap,
+                min_shape=min_shape)
+        else:
+            built = build_window(self.state, self.graph, root, depth,
+                                 tree_depth, extra_obs_per_lm_cap=cap,
+                                 gather_floats=False, min_shape=min_shape)
+        if built is not None:
+            self._window_caps[depth] = built[1].shape_key
+        return built
+
     def _sweep_windows(self, roots, depth: int, tree_depth: int):
         """The windows of one sweep phase with their ownership: each
         window's opt masks cleared on unknowns an earlier root of the phase
@@ -967,11 +1016,8 @@ class SrbaEngine:
         wins = []
         claimed_e: set = set()
         claimed_l: set = set()
-        cap = self.parameters.extra_obs_per_lm_cap
         for root in roots:
-            built = build_window(self.state, self.graph, root, depth,
-                                 tree_depth, extra_obs_per_lm_cap=cap,
-                                 gather_floats=False)
+            built = self._build_window(root, depth, tree_depth)
             if built is None:
                 continue
             arrays, _ = built

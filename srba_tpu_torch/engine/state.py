@@ -170,6 +170,14 @@ class ProblemState:
 
     # -- views (trimmed to live rows) --------------------------------------
 
+    @property
+    def edge_poses(self) -> np.ndarray:
+        return self.k2k_pose[: self.num_edges]
+
+    @property
+    def landmark_states(self) -> np.ndarray:
+        return self.lm_state[: self.num_lms]
+
     def edges_view(self):
         return (self.k2k_from[: self.num_edges],
                 self.k2k_to[: self.num_edges])

@@ -42,6 +42,17 @@ def _bucket(n: int, minimum: int) -> int:
     return cap
 
 
+def bucket_shape(counts, min_shape: Optional[tuple] = None) -> tuple:
+    """Padded (E, L, N) for real (#edges, #landmarks, #observations): the
+    ladder's buckets, raised per dimension to ``min_shape`` where given
+    (the engine's per-depth ratchet)."""
+    shape = (_bucket(int(counts[0]), E_MIN), _bucket(int(counts[1]), L_MIN),
+             _bucket(int(counts[2]), N_MIN))
+    if min_shape is None:
+        return shape
+    return tuple(max(s, int(m)) for s, m in zip(shape, min_shape))
+
+
 @dataclass
 class WindowPlan:
     """Host bookkeeping for one window: which global ids occupy which local
@@ -93,11 +104,12 @@ def build_window(
     max_tree_depth: int,
     extra_obs_per_lm_cap: Optional[int] = None,
     gather_floats: bool = True,
+    min_shape: Optional[tuple] = None,
 ) -> Optional[tuple]:
     """Select the local optimization window around ``root_kf`` and build the
-    padded arrays.  Returns ``(WindowArrays, WindowPlan)`` or ``None`` when
-    there is nothing to optimize (no in-window edges or no usable
-    observations)."""
+    padded arrays, padded to :func:`bucket_shape` (at least ``min_shape``).
+    Returns ``(WindowArrays, WindowPlan)`` or ``None`` when there is nothing
+    to optimize (no in-window edges or no usable observations)."""
     win_kfs: Set[int] = set(graph.window(root_kf, max_optimize_depth))
 
     # Edges to optimize: both endpoints inside the window.
@@ -147,9 +159,7 @@ def build_window(
     lm_local = {l: i for i, l in enumerate(lm_ids_sorted)}
 
     E_real, L_real, N_real = len(involved), len(lm_ids_sorted), len(rows)
-    E = _bucket(E_real, E_MIN)
-    L = _bucket(L_real, L_MIN)
-    N = _bucket(N_real, N_MIN)
+    E, L, N = bucket_shape((E_real, L_real, N_real), min_shape)
     D = max_tree_depth
     pose_dim, lm_dim, z_dim = state.pose_dim, state.lm_dim, state.z_dim
 

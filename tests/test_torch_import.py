@@ -1,6 +1,7 @@
 """srba_tpu_torch imports no JAX, runs only where it is told to, and names
 what it has not ported yet."""
 
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -262,3 +263,65 @@ def test_public_entry_points_exported():
         and callable(quat_from_yaw_pitch_roll)
     for name in ("optimize_edges", "refine_map", "optimize_local_area"):
         assert callable(getattr(port.SrbaEngine, name))
+
+
+SLICE8_MODULES = ["srba_tpu_torch.cli", "srba_tpu_torch.io",
+                  "srba_tpu_torch.io.checkpoint",
+                  "srba_tpu_torch.io.config_ini",
+                  "srba_tpu_torch.io.dataset_io", "srba_tpu_torch.io.g2o",
+                  "srba_tpu_torch.io.html_viewer", "srba_tpu_torch.io.render",
+                  "srba_tpu_torch.native", "srba_tpu_torch.native.core",
+                  "srba_tpu_torch.examples.tutorial_stereo_se3"]
+
+
+@pytest.mark.parametrize("mod", SLICE8_MODULES)
+def test_cli_io_native_modules_import_with_jax_blocked(mod):
+    """The CLI, the file I/O, the native core and the tutorials import in
+    a fresh interpreter where ``jax`` and ``srba_tpu`` cannot be imported
+    at all (``sys.modules[name] = None``), and pull in no matplotlib (the
+    renderer imports it at the call)."""
+    code = (
+        "import importlib, sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'srba_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"importlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                     'srba_tpu', 'matplotlib'))\n"
+        "print('LEAKED', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("what", ["engine_mesh", "solver_axis_name",
+                                  "sweep_step_mesh", "refine_map_mesh",
+                                  "optimize_global_mesh", "pgo_spmd"])
+def test_only_mesh_paths_raise(what):
+    """What the port still lacks is the mesh and multi-process execution
+    (the JAX package's ``parallel/``): each of those entry points raises
+    ``NotImplementedError`` by name, before any work."""
+    from srba_tpu_torch import SrbaEngine
+    from srba_tpu_torch.solver.global_graphslam import (PGOConfig,
+                                                        make_pgo_spmd)
+    from srba_tpu_torch.solver.lm import SolverConfig, make_solver_impl
+    from srba_tpu_torch.solver.multi_window import make_sweep_step_mesh
+
+    cfg = SolverConfig(obs_model="RangeBearing2D", pose_group="SE2",
+                       lm_type="Euclidean2D", max_depth=3)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        if what == "engine_mesh":
+            SrbaEngine("RangeBearing2D", mesh=object(), device="cpu")
+        elif what == "solver_axis_name":
+            make_solver_impl(dataclasses.replace(cfg, axis_name="obs"))
+        elif what == "sweep_step_mesh":
+            make_sweep_step_mesh(cfg, object())
+        elif what == "refine_map_mesh":
+            SrbaEngine("RangeBearing2D", device="cpu").refine_map(
+                mesh=object())
+        elif what == "optimize_global_mesh":
+            SrbaEngine("RelativePoses2D", device="cpu").optimize_global(
+                mesh=object())
+        else:
+            make_pgo_spmd(PGOConfig(group="SE2"), object())
