@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the srba_tpu_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # phases 1-21
+    python3 chip_smoke.py                  # phases 1-23
     python3 chip_smoke.py --config5-full   # phases 1-3, then config #5
                                            # unreduced (5000 keyframes)
     python3 chip_smoke.py --bucket-pairs   # phases 1-3, then the window
@@ -125,14 +125,35 @@ Phases (any failure raises and the script exits non-zero):
    ``[32768, 6, 6]`` held against its plain version on that solve's
    stacks;
 21. the six tutorials (``srba_tpu_torch/examples``), ``main(device=
-   "cuda")`` at their own sizes, each with its wall time.
+   "cuda")`` at their own sizes, each with its wall time;
+22. the mesh paths (``srba_tpu_torch.parallel``) in this process on a
+   world of one rank (NCCL): config #1 through ``SrbaEngine(
+   device_master=False, mesh=make_mesh())`` (tables, ATE and every window
+   solve's info bitwise phase 16's), pgo20k with ``mesh=`` (nodes bitwise
+   phase 9's), config #4's ``optimize_global(mesh=...)`` on phase 8's map
+   from a checkpoint (its LM-PCG and terminal calls bitwise phase 10's),
+   ``refine_map(mesh=...)`` on config #1 (masters bitwise phase 18's);
+   each with the kernel held to plain on the stacks it built and its
+   all-reduce rounds per solve with their mean time;
+23. a two-rank gloo ring on the one card (this script in two more
+   processes, ``--ring-worker``): config #1 through ``MultiHostEngine``
+   with ``broadcast_batch`` 1 and 4 (rank 0 feeds bench.py's 100 KFs,
+   rank 1 serves: 100 KFs served, replicas bitwise equal, batch 4 bitwise
+   batch 1, ATE within its bound and 2e-3 m of phase 22's, the kernel on
+   ``[64,2,2]`` held to plain in each rank; KF/s, broadcast time per KF,
+   all-reduce time per LM iteration), the edge-sharded pgo20k (certified,
+   error within rel 1e-3 of phase 9's, nodes bitwise across ranks) and
+   the window-sharded ``refine_map`` on config #1 (error below half its
+   start and within rel 3e-2 of phase 18's, masters bitwise across
+   ranks).  A rank that
+   fails or outlives its time limit fails the phase.
 
-With ``--config5-full`` phases 4-15 are skipped and config #5 runs as
+With ``--config5-full`` phases 4-23 are skipped and config #5 runs as
 ``bench.py``'s ``bench_config5`` does (5000 keyframes, periodic solves
 every 1250, the terminal solve, ATE bound 1.0 m), printing bench's report
 line.
 
-With ``--bucket-pairs`` phases 4-21 are skipped and configs #1 and #2 run
+With ``--bucket-pairs`` phases 4-23 are skipped and configs #1 and #2 run
 four rounds each of three window variants, interleaved: the native core
 padded by the engine's ratchet (the default), the Python builder with the
 same ratchet (no g++), and the native core with no ratchet (each window at
@@ -239,6 +260,22 @@ VAR1_KFS, VAR1_ATE_BOUND, VAR1_LATE_CENTERS = 80, 0.5, 1
 # quaternion in float64: a float32 quaternion of phase 9's problem moves by
 # at most a few float32 ulps.
 RESUME_ATE_ATOL, CLI_ATE_ATOL, G2O_QUAT_ATOL = 0.01, 1e-3, 1e-6
+# Phase 23, two gloo ranks on the one card (the ranks sum their shards in
+# rank order, and the sweep solves each rank's share of the windows as a
+# batch of its own, so the ring rounds otherwise than one rank): config
+# #1's ATE within 2e-3 m of phase 22's (tests/test_multihost.py's ring
+# against one process), pgo20k's error within rel 1e-3 of phase 9's (the
+# global PGO's CPU-agreement tolerance), refine_map's error below half its
+# start (phase 18's gain) and within rel 3e-2 of phase 18's: three sweeps
+# from raw odometry end up to 1.078e-02 from the unperturbed run with the
+# masters nudged by 1e-7 or 1e-6 (30 CPU runs), and 7.0 (700%) off with
+# half the windows' deltas dropped (tests/test_torch_midscale.py::
+# test_refine_map_rounding_spread).  A rank that has not finished in
+# RING_TIMEOUT seconds fails the phase; every collective of the ring fails
+# after RING_GROUP_TIMEOUT seconds.
+RING_RANKS, RING_BATCHES = 2, (1, 4)
+RING_ATE_ATOL, RING_PGO_ERR_RTOL, RING_REFINE_RTOL = 2e-3, 1e-3, 3e-2
+RING_TIMEOUT, RING_GROUP_TIMEOUT = 480, 120
 
 
 def log(msg: str) -> None:
@@ -439,22 +476,28 @@ def shapes(by_shape) -> str:
 
 
 @contextmanager
-def pgo_kernel_inputs():
-    """Records a copy of every stack the global PGO run inside hands
+def kernel_inputs(module):
+    """Records a copy of every stack ``module``'s code hands its
     ``spd_inverse`` (which still runs the kernel and counts)."""
-    from srba_tpu_torch.solver import global_graphslam as pgo
     seen = []
-    spd_inverse = pgo.spd_inverse
+    spd_inverse = module.spd_inverse
 
     def recorder(m):
         seen.append(m.clone())
         return spd_inverse(m)
 
-    pgo.spd_inverse = recorder
+    module.spd_inverse = recorder
     try:
         yield seen
     finally:
-        pgo.spd_inverse = spd_inverse
+        module.spd_inverse = spd_inverse
+
+
+def pgo_kernel_inputs():
+    """Records a copy of every stack the global PGO run inside hands
+    ``spd_inverse`` (which still runs the kernel and counts)."""
+    from srba_tpu_torch.solver import global_graphslam as pgo
+    return kernel_inputs(pgo)
 
 
 @contextmanager
@@ -617,12 +660,19 @@ def pgo20k_problem(K=20000):
     return {"group": "SE3", "nodes": nodes, "edges": edges}
 
 
+def pgo20k_config():
+    """bench.py ``bench_pgo``'s solver settings (``bench.py:373-374``)."""
+    from srba_tpu_torch.solver.global_graphslam import PGOConfig
+    return PGOConfig(group="SE3", max_outer=30, cg_iters=100,
+                     abs_tol_per_edge=2e-5)
+
+
 def phase_pgo20k(card: str, bl):
     """Phase 9: bench.py's 20k-node SE(3) PGO on the card.  Returns the
-    kernel's launches per block size in the timed call, the problem and the
-    timed call's info."""
-    from srba_tpu_torch.solver.global_graphslam import (
-        PGOConfig, optimize_global_pose_graph)
+    kernel's launches per block size in the timed call, the problem, the
+    timed call's info and its nodes."""
+    from srba_tpu_torch.solver.global_graphslam import \
+        optimize_global_pose_graph
     from srba_tpu_torch.utils.profiler import Profiler
 
     t_phase = time.perf_counter()
@@ -631,8 +681,7 @@ def phase_pgo20k(card: str, bl):
     K, E = len(prob["nodes"]), len(prob["edges"])
     log(f"[9] bench_pgo problem: {K} nodes, {E} edges, built in "
         f"{time.perf_counter() - t0:.1f} s")
-    cfg = PGOConfig(group="SE3", max_outer=30, cg_iters=100,
-                    abs_tol_per_edge=2e-5)
+    cfg = pgo20k_config()
     t0 = time.perf_counter()
     G_warm, _ = optimize_global_pose_graph(prob, cfg, device="cuda")
     log(f"[9] warm call: {time.perf_counter() - t0:.3f} s")
@@ -681,7 +730,7 @@ def phase_pgo20k(card: str, bl):
     check(d_node < PGO_NODE_ATOL and d_err < PGO_ERR_RTOL,
           "20k PGO on CUDA disagrees with the CPU")
     log(f"[9] phase wall time {time.perf_counter() - t_phase:.1f} s")
-    return launches, prob, info
+    return launches, prob, info, G
 
 
 def phase_config4_pgo(eng, cfg4, card: str, bl):
@@ -692,7 +741,8 @@ def phase_config4_pgo(eng, cfg4, card: str, bl):
     first solves LM-PCG from the incremental map (chordal off, no
     write-back) and then makes the terminal ``optimize_global()`` with its
     write-back.  Returns the kernel's launches per block size in both
-    calls."""
+    calls, and the nodes and info of each call: ``(launches, (G_lm,
+    info_lm), (G, info))``."""
     from srba_tpu_torch import Observation
     from srba_tpu_torch.solver.global_graphslam import PGOConfig
     from srba_tpu_torch.utils.datasets import ate_rmse
@@ -733,7 +783,7 @@ def phase_config4_pgo(eng, cfg4, card: str, bl):
           "once per LM iteration")
     torch_sync()
     t0 = time.perf_counter()
-    _, info = eng.optimize_global()
+    G, info = eng.optimize_global()
     torch_sync()
     dt = time.perf_counter() - t0
     launches = launches_by_d(bl)
@@ -759,7 +809,7 @@ def phase_config4_pgo(eng, cfg4, card: str, bl):
         "KFs, finite error")
     check_kernel_on("[10]", bl, stacks)
     log(f"[10] phase wall time {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, (G_lm, info_lm), (G, info)
 
 
 def chordal_problem(K=120, radius=10.0, yaw_revolutions=4.0, seed=0):
@@ -1335,13 +1385,14 @@ def within(x: float, ref: float, rtol: float, atol: float = 0.0) -> bool:
 def phase_host_window(eng5, ate5, cfg1, card: str, bl):
     """Phase 16: config #1 in the host-window mode, held against phase 5's
     device-master drive.  Returns the kernel's launches per block size in
-    the timed pass."""
+    the timed pass, and its engine, ATE and window solves' infos."""
     t_phase = time.perf_counter()
     _, warm, _ = run_config(cfg1, "cuda", WARMUP_KFS, device_master=False)
     log(f"[16] config #1 host-window warm-up ({WARMUP_KFS} KFs): "
         f"{warm:.3f} s")
     reset_launch_counts(bl)
-    eng, dt, ate = run_config(cfg1, "cuda", device_master=False)
+    with step_infos() as infos:
+        eng, dt, ate = run_config(cfg1, "cuda", device_master=False)
     launches = launches_by_d(bl)
     by_shape = dict(bl.spd_inverse_cuda.launches_by_shape)
     check(eng.device_master is None, "phase 16 engine has device masters")
@@ -1378,7 +1429,7 @@ def phase_host_window(eng5, ate5, cfg1, card: str, bl):
           "host-window config #1 state differs between two runs")
     log("[16] rerun: host edge and landmark tables bitwise equal")
     log(f"[16] phase wall time {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, (eng, ate, infos)
 
 
 def config_bucket(eng, device: str):
@@ -1506,11 +1557,10 @@ def sweep_records(keep_stacks: bool = False):
     counts)."""
     from srba_tpu_torch.solver import multi_window as mw
     phases, stacks = [], []
-    make, inverse = mw.make_sweep_step, mw.spd_inverse
+    make, make_mesh, inverse = (mw.make_sweep_step, mw.make_sweep_step_mesh,
+                                mw.spd_inverse)
 
-    def make_recorder(cfg):
-        step = make(cfg)
-
+    def recording(step):
         def recorder(*args):
             phases.append((args[3].shape[0],) + tuple(args[8:11]))
             return step(*args)
@@ -1520,20 +1570,23 @@ def sweep_records(keep_stacks: bool = False):
         stacks.append(m.clone())
         return inverse(m)
 
-    mw.make_sweep_step = make_recorder
+    mw.make_sweep_step = lambda cfg: recording(make(cfg))
+    mw.make_sweep_step_mesh = lambda cfg, mesh: recording(make_mesh(cfg,
+                                                                    mesh))
     if keep_stacks:
         mw.spd_inverse = inverse_recorder
     try:
         yield phases, stacks
     finally:
-        mw.make_sweep_step, mw.spd_inverse = make, inverse
+        mw.make_sweep_step, mw.make_sweep_step_mesh, mw.spd_inverse = \
+            make, make_mesh, inverse
 
 
 def phase_refine_map(name: str, card: str, bl, timer, times):
     """Phase 18: ``refine_map`` on the raw-odometry map of ``name`` on the
     card and on the CPU.  Adds the kernel's times at the sweeps' shapes to
     ``times``; returns the kernel's launches per block size in the card's
-    sweeps."""
+    sweeps, and the card's engine and error after them."""
     from srba_tpu_torch.tools import spd_inverse_bench as kb
 
     t_phase = time.perf_counter()
@@ -1587,7 +1640,7 @@ def phase_refine_map(name: str, card: str, bl, timer, times):
             times[(B, dd)] = kb.measure_shape(B, dd, timer)
             log(f"[18] {kb.format_shape(B, dd, times[(B, dd)])} (on {card})")
     log(f"[18] phase wall time {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, (eng, err1)
 
 
 def phase_refine_optimized(eng5, cfg1, card: str):
@@ -1979,6 +2032,451 @@ def phase_tutorials(card: str, bl):
     return launches
 
 
+@contextmanager
+def step_infos():
+    """Records the info every ``optimize_local_area`` run inside returns
+    (the window solves' errors, iterations, lambda, observations)."""
+    from srba_tpu_torch.engine.engine import SrbaEngine
+    seen = []
+    optimize = SrbaEngine.optimize_local_area
+
+    def recorder(self, *args, **kwargs):
+        info = optimize(self, *args, **kwargs)
+        seen.append(dict(info))
+        return info
+
+    SrbaEngine.optimize_local_area = recorder
+    try:
+        yield seen
+    finally:
+        SrbaEngine.optimize_local_area = optimize
+
+
+@contextmanager
+def collective_rounds():
+    """Counts and times every ``torch.distributed`` all-reduce and
+    broadcast made inside: ``{op: [calls, seconds]}``.  Each call waits for
+    the card before it starts and after it ends, so its time is the
+    collective's alone (the transport, for gloo the copies to the host and
+    back); the numbers are the same as without the waits."""
+    import torch
+    import torch.distributed as dist
+    seen = {"all_reduce": [0, 0.0], "broadcast": [0, 0.0]}
+    inner = {op: getattr(dist, op) for op in seen}
+
+    def timed(op):
+        def call(tensor, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner[op](tensor, *args, **kwargs)
+            torch.cuda.synchronize()
+            seen[op][0] += 1
+            seen[op][1] += time.perf_counter() - t0
+            return out
+        return call
+
+    for op in seen:
+        setattr(dist, op, timed(op))
+    try:
+        yield seen
+    finally:
+        for op, fn in inner.items():
+            setattr(dist, op, fn)
+
+
+def rounds_line(rounds, per: int, what: str) -> str:
+    n, sec = rounds["all_reduce"]
+    if not n:
+        return "no all-reduce"
+    return (f"{n} all-reduce rounds = {n / max(per, 1):.1f} per {what}, "
+            f"mean {1e3 * sec / n:.3f} ms")
+
+
+def save_engine(eng, name: str) -> str:
+    """A checkpoint of ``eng`` under the system's temporary directory."""
+    import os
+    import tempfile
+
+    from srba_tpu_torch.io.checkpoint import save_checkpoint
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"),
+                        f"{name}.npz")
+    save_checkpoint(eng, path)
+    return path
+
+
+def digest(*arrays) -> str:
+    """SHA-256 of arrays' bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def state_digest(eng) -> str:
+    """SHA-256 of an engine's edge and landmark tables (host mirror)."""
+    st = eng.get_rba_state()
+    return digest(st.k2k_pose[: st.num_edges], st.lm_state[: st.num_lms])
+
+
+def masters_digest(eng) -> str:
+    """SHA-256 of a device-master engine's pose, prior and landmark
+    masters."""
+    dm = eng.device_master
+    return digest(*(t.cpu().numpy() for t in (dm.pose, dm.prior, dm.lm)))
+
+
+def phase_mesh_one_rank(card: str, bl, cfg1, host16, pgo9, pgo10, refine18):
+    """Phase 22: the mesh paths in this process on a world of one rank
+    (NCCL): config #1 through ``SrbaEngine(device_master=False,
+    mesh=make_mesh())`` against phase 16, pgo20k with ``mesh=`` against
+    phase 9, config #4's ``optimize_global(mesh=...)`` (its LM-PCG and its
+    terminal call, on phase 8's map from a checkpoint) against phase 10,
+    ``refine_map(mesh=...)`` on config #1 against phase 18; each bitwise,
+    each with its kernel stacks held to plain and its collective rounds.
+    Returns the launches by path and config #1's ATE."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from srba_tpu_torch.io.checkpoint import load_checkpoint
+    from srba_tpu_torch.parallel import make_mesh
+    from srba_tpu_torch.parallel import multihost as mh
+    from srba_tpu_torch.solver import global_graphslam as pgo
+    from srba_tpu_torch.solver import lm
+    from srba_tpu_torch.solver.global_graphslam import (
+        PGOConfig, optimize_global_pose_graph)
+
+    t_phase = time.perf_counter()
+    mh.initialize()
+    mesh = make_mesh()
+    check(dist.get_backend() == "nccl" and mesh.size() == 1,
+          f"[22] expected one NCCL rank, got {dist.get_backend()} x "
+          f"{mesh.size()}")
+    log(f"[22] process group: {dist.get_backend()}, world size "
+        f"{dist.get_world_size()}, {mesh} (on {card})")
+    launches = {}
+
+    # (a) config #1 in the host-window mode over the mesh.
+    eng16, ate16, infos16 = host16
+    reset_launch_counts(bl)
+    with step_infos() as infos, kernel_inputs(lm) as stacks, \
+            collective_rounds() as rounds:
+        eng, dt, ate = run_config(cfg1, "cuda", device_master=False,
+                                  mesh=mesh)
+    launches["mesh_config1"] = launches_by_d(bl)
+    by_shape = dict(bl.spd_inverse_cuda.launches_by_shape)
+    solves = sum("skipped" not in i for i in infos)
+    kfs = eng.num_keyframes
+    check(eng.mesh is mesh and eng.device_master is None,
+          "[22] the mesh engine is not in the host-window mode")
+    check(np.array_equal(eng.state.k2k_pose, eng16.state.k2k_pose)
+          and np.array_equal(eng.state.lm_state, eng16.state.lm_state)
+          and ate == ate16 and infos == infos16,
+          "[22] config #1 over a one-rank mesh is not bitwise phase 16")
+    check(launches["mesh_config1"].get(2, 0) > 0,
+          "[22] config #1 never launched the kernel on [L, 2, 2]")
+    log(f"[22] config #1 host-window over the mesh on {card}: {kfs} KFs in "
+        f"{dt:.3f} s = {kfs / dt:.2f} KF/s (each collective waits for the "
+        f"card), ATE {ate:.6f} m; edge and landmark tables, ATE and the "
+        f"{len(infos)} window solves' errors, iterations and lambdas "
+        f"bitwise phase 16's; {rounds_line(rounds, solves, 'solve')}; "
+        f"spd_inverse kernel launches by [B, d]: {shapes(by_shape)}")
+    check_kernel_on("[22] config #1", bl, stacks)
+
+    # (b) pgo20k, edge-sharded.
+    prob, G9 = pgo9
+    reset_launch_counts(bl)
+    with kernel_inputs(pgo) as stacks, collective_rounds() as rounds:
+        t0 = time.perf_counter()
+        G, info = optimize_global_pose_graph(prob, pgo20k_config(),
+                                             mesh=mesh, device="cuda")
+        dt = time.perf_counter() - t0
+    launches["mesh_pgo20k"] = launches_by_d(bl)
+    check(np.array_equal(G, G9) and info["converged"] == 1.0,
+          f"[22] pgo20k over the mesh is not bitwise phase 9: {info}")
+    log(f"[22] pgo20k over the mesh on {card}: {dt:.3f} s, err "
+        f"{info['err_init']:.6e} -> {info['err_final']:.6e}, iters "
+        f"{info['iters']:.0f}, cg_iters_total {info['cg_iters_total']:.0f}; "
+        f"nodes bitwise phase 9's; {rounds_line(rounds, 1, 'solve')}; "
+        f"kernel launches by [B, d]: "
+        f"{shapes(bl.spd_inverse_cuda.launches_by_shape)}")
+    check_kernel_on("[22] pgo20k", bl, stacks)
+
+    # (c) config #4's optimize_global(mesh=...) on phase 8's map.
+    ckpt4, (G_lm10, info_lm10), (G10, info10) = pgo10
+    eng4 = load_checkpoint(ckpt4, device="cuda")
+    shutil.rmtree(os.path.dirname(ckpt4))
+    reset_launch_counts(bl)
+    with kernel_inputs(pgo) as stacks, collective_rounds() as rounds:
+        G_lm, info_lm = eng4.optimize_global(
+            PGOConfig(group="SE2", robust_delta=0.1), write_back=False,
+            mesh=mesh)
+        G, info = eng4.optimize_global(mesh=mesh)
+    launches["mesh_config4_pgo"] = launches_by_d(bl)
+    check(np.array_equal(G_lm, G_lm10) and info_lm == info_lm10
+          and np.array_equal(G, G10) and info == info10,
+          "[22] config #4's optimize_global(mesh=...) is not bitwise "
+          "phase 10")
+    log(f"[22] config #4 (phase 8's map from a checkpoint) "
+        f"optimize_global(mesh=...) on {card}: the LM-PCG "
+        f"({info_lm['iters']:.0f} LM iterations) and the terminal call "
+        f"({info['iters']:.0f}) bitwise phase 10's nodes and infos; "
+        f"{rounds_line(rounds, 2, 'solve')}; kernel launches by [B, d]: "
+        f"{shapes(bl.spd_inverse_cuda.launches_by_shape)}")
+    check_kernel_on("[22] config #4", bl, stacks)
+
+    # (d) refine_map(mesh=...) on config #1 from raw odometry.
+    eng18, _ = refine18
+    eng_r, _, _ = run_config(cfg1, "cuda", run_local=False)
+    reset_launch_counts(bl)
+    with sweep_records(keep_stacks=True) as (phases, stacks), \
+            collective_rounds() as rounds:
+        t0 = time.perf_counter()
+        eng_r.refine_map(sweeps=REFINE_SWEEPS, mesh=mesh)
+        eng_r.fence()
+        dt = time.perf_counter() - t0
+    launches["mesh_refine_map_config1"] = launches_by_d(bl)
+    check(masters_equal(eng_r, eng18),
+          "[22] refine_map(mesh=...) is not bitwise phase 18")
+    log(f"[22] config #1 refine_map(sweeps={REFINE_SWEEPS}, mesh=...) on "
+        f"{card}: {dt:.3f} s, {len(phases)} phases; masters bitwise phase "
+        f"18's; {rounds_line(rounds, len(phases), 'phase')}; kernel "
+        f"launches by [B, d]: "
+        f"{shapes(bl.spd_inverse_cuda.launches_by_shape)}")
+    check_kernel_on("[22] refine_map", bl, stacks, per_block=True)
+    dist.destroy_process_group()
+    log(f"[22] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "ate": ate}
+
+
+def ring_worker(rank: int, nprocs: int, store: str, out: str) -> int:
+    """One rank of phase 23's ring (``--ring-worker``): gloo on the file
+    ``store``, the card shared with the other rank.  Writes its results to
+    ``{out}.{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    import srba_tpu_torch as port
+    from srba_tpu_torch.models.noise import NoiseIdentity
+    from srba_tpu_torch.ops import block_linalg as bl
+    from srba_tpu_torch.parallel import make_mesh
+    from srba_tpu_torch.parallel import multihost as mh
+    from srba_tpu_torch.solver import global_graphslam as pgo
+    from srba_tpu_torch.solver import lm
+    from srba_tpu_torch.utils.datasets import ate_rmse
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    tag = f"[23] rank {rank}"
+    mh.initialize(f"file://{store}", nprocs, rank, device="cuda",
+                  timeout=RING_GROUP_TIMEOUT)
+    mesh = make_mesh()
+    check(dist.get_backend() == "gloo" and mesh.size() == nprocs,
+          f"{tag}: expected {nprocs} gloo ranks")
+    bl.load_kernel_library()
+    res = {"rank": rank, "backend": dist.get_backend(), "launches": {}}
+
+    cfg1 = make_config("config1")
+    world, ds, model, sigma, d, engine_kw = cfg1
+    for B in RING_BATCHES:
+        reset_launch_counts(bl)
+        with kernel_inputs(lm) as stacks, collective_rounds() as rounds, \
+                step_infos() as infos:
+            eng = mh.MultiHostEngine(model, noise=NoiseIdentity(sigma),
+                                     mesh=mesh, broadcast_batch=B,
+                                     **engine_kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mh.is_coordinator():
+                for k, frame in enumerate(ds.frames):
+                    eng.define_new_keyframe(
+                        [port.Observation(lm_id=m, z=z) for m, z in frame],
+                        edge_init={k - 1: ds.odometry[k - 1]} if k else None)
+                tail = eng.stop()
+                served = eng.num_keyframes
+            else:
+                served = eng.serve()
+            eng.fence()
+            dt = time.perf_counter() - t0
+        G, _ = eng.create_complete_spanning_tree(0)
+        solves = sum("skipped" not in i for i in infos)
+        (n_ar, s_ar), (n_bc, s_bc) = rounds["all_reduce"], rounds["broadcast"]
+        lm_iters = (n_ar - 2 * solves) // 2
+        res[f"b{B}"] = {
+            "served": served, "num_kfs": eng.num_keyframes,
+            "tail": len(tail) if mh.is_coordinator() else None,
+            "ate": float(ate_rmse(G[:, :d], world.gt_poses[:len(G), :d])),
+            "digest": state_digest(eng), "seconds": dt,
+            "kf_per_s": eng.num_keyframes / dt, "solves": solves,
+            "all_reduce": [n_ar, s_ar], "lm_iters": lm_iters,
+            "broadcast": [n_bc, s_bc],
+            "by_shape": {f"{B_},{d_}": n for (B_, d_), n in
+                         bl.spd_inverse_cuda.launches_by_shape.items()}}
+        res["launches"][f"ring_b{B}_config1_rank{rank}"] = launches_by_d(bl)
+        check_kernel_on(f"{tag} config #1 broadcast_batch={B}", bl, stacks)
+
+    prob = pgo20k_problem()
+    reset_launch_counts(bl)
+    with kernel_inputs(pgo) as stacks, collective_rounds() as rounds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        G, info = pgo.optimize_global_pose_graph(prob, pgo20k_config(),
+                                                 mesh=mesh, device="cuda")
+        dt = time.perf_counter() - t0
+    res["pgo20k"] = {"info": info, "seconds": dt,
+                     "digest": digest(G),
+                     "all_reduce": rounds["all_reduce"],
+                     "by_shape": {f"{B_},{d_}": n for (B_, d_), n in
+                                  bl.spd_inverse_cuda.launches_by_shape
+                                  .items()}}
+    res["launches"][f"ring_pgo20k_rank{rank}"] = launches_by_d(bl)
+    check_kernel_on(f"{tag} pgo20k", bl, stacks)
+
+    eng, _, _ = run_config(cfg1, "cuda", run_local=False)
+    err0 = eng.eval_overall_squared_error()
+    reset_launch_counts(bl)
+    with sweep_records(keep_stacks=True) as (phases, stacks), \
+            collective_rounds() as rounds:
+        t0 = time.perf_counter()
+        eng.refine_map(sweeps=REFINE_SWEEPS, mesh=mesh)
+        eng.fence()
+        dt = time.perf_counter() - t0
+    res["refine_map"] = {"error": eng.eval_overall_squared_error(),
+                         "error0": err0,
+                         "seconds": dt, "phases": phases,
+                         "digest": masters_digest(eng),
+                         "all_reduce": rounds["all_reduce"]}
+    res["launches"][f"ring_refine_map_config1_rank{rank}"] = \
+        launches_by_d(bl)
+    check_kernel_on(f"{tag} refine_map", bl, stacks, per_block=True)
+    mh.sync_processes("done")
+    dist.destroy_process_group()
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def phase_ring(card: str, mesh22, info9, err18):
+    """Phase 23: a two-rank gloo ring on the one card, each rank a process
+    running ``ring_worker``: config #1 through ``MultiHostEngine`` with
+    ``broadcast_batch`` 1 and 4 (rank 0 feeds, rank 1 serves), the
+    edge-sharded pgo20k and the window-sharded ``refine_map`` on config #1.
+    Returns the kernel's launches by path and rank."""
+    import os
+    import tempfile
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ring_") as tmp:
+        store, out = os.path.join(tmp, "store"), os.path.join(tmp, "out")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--ring-worker", str(r), str(RING_RANKS), store, out],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(RING_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=RING_TIMEOUT)[0].decode(
+                    errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            for line in logs[r].splitlines():
+                if line.startswith("[23]"):
+                    log(line)
+            check(p.returncode == 0, f"[23] rank {r} failed (rc "
+                  f"{p.returncode}):\n{logs[r][-4000:]}")
+        ranks = []
+        for r in range(RING_RANKS):
+            with open(f"{out}.{r}.json") as f:
+                ranks.append(json.load(f))
+    r0, r1 = ranks
+    for B in RING_BATCHES:
+        a, b = r0[f"b{B}"], r1[f"b{B}"]
+        check(b["served"] == 100 and a["num_kfs"] == b["num_kfs"] == 100,
+              f"[23] broadcast_batch={B}: {b['served']} KFs served")
+        check(a["digest"] == b["digest"] and a["ate"] == b["ate"],
+              f"[23] broadcast_batch={B}: the replicas differ")
+        check(a["ate"] <= ATE_BOUND["config1"]
+              and abs(a["ate"] - mesh22["ate"]) <= RING_ATE_ATOL,
+              f"[23] broadcast_batch={B}: ATE {a['ate']} (bound "
+              f"{ATE_BOUND['config1']}, phase 22 {mesh22['ate']})")
+        for r in ranks:
+            check(r[f"b{B}"]["by_shape"].get("64,2", 0) > 0,
+                  f"[23] rank {r['rank']} never launched the kernel on "
+                  "[64,2,2]")
+            rb = r[f"b{B}"]
+            n_ar, s_ar = rb["all_reduce"]
+            n_bc, s_bc = rb["broadcast"]
+            log(f"[23] rank {r['rank']} config #1 MultiHostEngine "
+                f"broadcast_batch={B} on {card} (2 gloo ranks sharing it; "
+                f"each collective waits for the card): {rb['num_kfs']} KFs "
+                f"in {rb['seconds']:.3f} s = {rb['kf_per_s']:.2f} KF/s, ATE "
+                f"{rb['ate']:.6f} m; broadcasts {n_bc} = "
+                f"{1e3 * s_bc / rb['num_kfs']:.3f} ms per KF; all-reduces "
+                f"{n_ar} over {rb['solves']} solves and {rb['lm_iters']} LM "
+                f"iterations = {1e3 * s_ar / max(rb['lm_iters'], 1):.3f} ms "
+                f"per LM iteration (mean {1e3 * s_ar / max(n_ar, 1):.3f} ms "
+                f"per round); kernel launches by [B,d]: {rb['by_shape']}"
+                + (f"; stop() returned {rb['tail']} infos"
+                   if rb["tail"] is not None else ""))
+    check(r0[f"b{RING_BATCHES[1]}"]["digest"]
+          == r0[f"b{RING_BATCHES[0]}"]["digest"],
+          "[23] broadcast_batch=4 is not bitwise broadcast_batch=1")
+    log(f"[23] config #1: the replicas' edge and landmark tables bitwise "
+        f"equal, broadcast_batch=4 bitwise broadcast_batch=1, ATE "
+        f"{r0['b1']['ate']:.6f} m within {RING_ATE_ATOL} m of phase 22's "
+        f"{mesh22['ate']:.6f} m")
+    p0, p1 = r0["pgo20k"], r1["pgo20k"]
+    err = p0["info"]["err_final"]
+    check(p0["digest"] == p1["digest"],
+          "[23] pgo20k: the replicas' nodes differ")
+    check(p0["info"]["converged"] == 1.0
+          and abs(err - info9["err_final"]) <= RING_PGO_ERR_RTOL
+          * info9["err_final"],
+          f"[23] pgo20k: {p0['info']} (phase 9 err_final "
+          f"{info9['err_final']:.6e})")
+    n_ar, s_ar = p0["all_reduce"]
+    log(f"[23] pgo20k edge-sharded over 2 ranks on {card}: "
+        f"{p0['seconds']:.3f} s, certified, err_final {err:.6e} (phase 9 "
+        f"{info9['err_final']:.6e}, rel diff "
+        f"{abs(err - info9['err_final']) / info9['err_final']:.3e}), iters "
+        f"{p0['info']['iters']:.0f}, cg_iters_total "
+        f"{p0['info']['cg_iters_total']:.0f}; nodes bitwise equal across "
+        f"ranks; {n_ar} all-reduce rounds, mean "
+        f"{1e3 * s_ar / max(n_ar, 1):.3f} ms; kernel launches by [B,d] "
+        f"{p0['by_shape']} (rank 0), {p1['by_shape']} (rank 1)")
+    s0, s1 = r0["refine_map"], r1["refine_map"]
+    rel = abs(s0["error"] - err18) / err18
+    check(s0["digest"] == s1["digest"],
+          "[23] refine_map: the replicas' masters differ")
+    check(rel <= RING_REFINE_RTOL
+          and s0["error"] < REFINE_GAIN * s0["error0"],
+          f"[23] refine_map error {s0['error0']} -> {s0['error']} (phase 18 "
+          f"{err18})")
+    n_ar, s_ar = s0["all_reduce"]
+    log(f"[23] config #1 refine_map(sweeps={REFINE_SWEEPS}) window-sharded "
+        f"over 2 ranks on {card}: {s0['seconds']:.3f} s, error "
+        f"{s0['error0']:.6e} -> {s0['error']:.6e} (phase 18 {err18:.6e}, "
+        f"rel diff {rel:.3e}, "
+        f"rtol {RING_REFINE_RTOL}); masters bitwise equal across ranks; "
+        f"{n_ar} all-reduce rounds over {len(s0['phases'])} phases, mean "
+        f"{1e3 * s_ar / max(n_ar, 1):.3f} ms")
+    log(f"[23] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    launches = {}
+    for r in ranks:
+        for path, by_d in r["launches"].items():
+            launches[path] = {int(k): v for k, v in by_d.items()}
+    return launches
+
+
 def torch_sync() -> None:
     import torch
     torch.cuda.synchronize()
@@ -2236,9 +2734,13 @@ def main() -> int:
     check_flags()
 
     # -- 9. 20k-node SE(3) PGO, 10. config #4's optimize_global, 11. chordal
-    launches["pgo20k"], pgo20k, pgo20k_info = phase_pgo20k(card, bl)
+    launches["pgo20k"], pgo20k, pgo20k_info, pgo20k_G = phase_pgo20k(card,
+                                                                      bl)
     check_flags()
-    launches["config4_pgo"] = phase_config4_pgo(eng4, cfg4, card, bl)
+    # Config #4's map before phase 10's solves, for phase 22.
+    ckpt4 = save_engine(eng4, "config4")
+    launches["config4_pgo"], *pgo10 = phase_config4_pgo(eng4, cfg4, card,
+                                                        bl)
     check_flags()
     phase_chordal(card)
     check_flags()
@@ -2259,15 +2761,16 @@ def main() -> int:
 
     # -- 16. host-window config #1, 17. solver variants, 18. refine_map,
     # 19. LocalAreasVar1 ---------------------------------------------------
-    launches["host_window_config1"] = phase_host_window(eng, ate, cfg1, card,
-                                                        bl)
+    launches["host_window_config1"], host16 = phase_host_window(
+        eng, ate, cfg1, card, bl)
     check_flags()
     launches["solver_variants"] = phase_solver_variants(eng2, card, bl)
     check_flags()
     timer = kb.KernelTimer()
+    refine18 = {}
     for name in ("config1", "config2"):
-        launches[f"refine_map_{name}"] = phase_refine_map(name, card, bl,
-                                                          timer, times)
+        launches[f"refine_map_{name}"], refine18[name] = phase_refine_map(
+            name, card, bl, timer, times)
     phase_refine_optimized(eng, cfg1, card)
     check_flags()
     launches["var1"], eng_var1 = phase_var1(card, bl)
@@ -2284,8 +2787,22 @@ def main() -> int:
         f"its windows natively; {engines['host_window']} host-window "
         "engines (the Python builder)")
 
+    # -- 22. the mesh paths on one rank (NCCL), 23. a two-rank gloo ring ----
+    mesh22 = phase_mesh_one_rank(card, bl, cfg1, host16, (pgo20k, pgo20k_G),
+                                 (ckpt4, *pgo10), refine18["config1"])
+    launches.update(mesh22["launches"])
+    check_flags()
+    launches.update(phase_ring(card, mesh22, pgo20k_info,
+                               refine18["config1"][1]))
+    check_flags()
+
     return finish(card, times, max_err, launches, t_start)
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ring-worker"]:
+        # Phase 23's ranks: the script itself in a fresh process each, as
+        # CUDA cannot fork.
+        sys.exit(ring_worker(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4], sys.argv[5]))
     sys.exit(main())

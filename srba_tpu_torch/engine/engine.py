@@ -21,8 +21,11 @@ Beside it: the host-window mode (``device_master=False``: the host state
 is authoritative, each window is uploaded, solved and written back),
 ``optimize_edges`` (an explicit list of unknowns), and the map-parallel
 ``refine_map`` (block-coordinate sweeps of many windows in one batched
-solve, :mod:`srba_tpu_torch.solver.multi_window`).  The mesh paths are not
-ported yet and raise by name.
+solve, :mod:`srba_tpu_torch.solver.multi_window`).  And the mesh paths
+(:mod:`srba_tpu_torch.parallel`): ``SrbaEngine(mesh=...)`` solves every
+window observation-sharded over the mesh's ranks, ``refine_map(mesh=...)``
+splits a sweep's windows over them and ``optimize_global(mesh=...)`` the
+global pose graph's edges; every rank passes the same full host arrays.
 
 Per keyframe the host does the integer work (allocation, edge-creation
 policy, spanning-tree paths, window selection — in the device-master mode
@@ -55,6 +58,7 @@ from srba_tpu_torch.models.observations import (OBSERVATION_MODELS,
                                                 calib_constants)
 from srba_tpu_torch.models.sensor_pose import SensorPoseNone
 from srba_tpu_torch.ops.np_lie import np_group_for
+from srba_tpu_torch.parallel.sharding import make_spmd_solver, mesh_device
 from srba_tpu_torch.solver.lm import SolverConfig, WindowBatch, get_solver
 from srba_tpu_torch.solver.master import INFO_KEYS
 from srba_tpu_torch.solver.window import build_window, write_back
@@ -163,10 +167,18 @@ class SrbaEngine:
         mesh=None,
         device="cuda",
     ):
+        # SPMD window solves: with a mesh, every window is solved
+        # observation-sharded over its ranks (each rank passes the same full
+        # host arrays; see parallel/multihost.py), on the rank's device.
+        # The device-master mode is single-device, so a mesh forces the
+        # host-window mode, as in the JAX package.
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh (observation-sharded) window solves are not ported to "
-                "srba_tpu_torch yet")
+            if resolve_device(device).type != mesh.device_type:
+                raise ValueError(f"device {str(device)!r} on a "
+                                 f"{mesh.device_type} mesh")
+            device_master = False
+            device = mesh_device(mesh)
+        self.mesh = mesh
         if calib is not None and not isinstance(calib,
                                                 (CameraCalib, StereoCalib)):
             raise NotImplementedError(
@@ -837,26 +849,31 @@ class SrbaEngine:
                     iters_cap=_iters_cap)
 
         with self.profiler.scope("device_solve"):
-            dev = self.device
-
-            def up(a, dtype=torch.float32):
-                return torch.as_tensor(np.asarray(a), dtype=dtype,
-                                       device=dev)
+            # Host arrays of the solver's dtypes; the solver uploads them
+            # (with a mesh, each rank its shard of the observation rows).
+            def host(a, dtype=np.float32):
+                return np.asarray(a, dtype)
 
             batch = WindowBatch(
-                edge_pose=up(arrays.edge_pose), edge_opt=up(arrays.edge_opt),
-                lm_state=up(arrays.lm_state), lm_opt=up(arrays.lm_opt),
-                obs_z=up(arrays.obs_z), obs_lm=up(arrays.obs_lm, torch.int32),
-                path_edge=up(arrays.path_edge, torch.int32),
-                path_sign=up(arrays.path_sign), obs_valid=up(arrays.obs_valid),
-                whitener=up(self._whitener),
-                sensor_pose_inv=up(self._sensor_pose_inv),
+                edge_pose=host(arrays.edge_pose),
+                edge_opt=host(arrays.edge_opt),
+                lm_state=host(arrays.lm_state), lm_opt=host(arrays.lm_opt),
+                obs_z=host(arrays.obs_z),
+                obs_lm=host(arrays.obs_lm, np.int32),
+                path_edge=host(arrays.path_edge, np.int32),
+                path_sign=host(arrays.path_sign),
+                obs_valid=host(arrays.obs_valid),
+                whitener=host(self._whitener),
+                sensor_pose_inv=host(self._sensor_pose_inv),
                 calib=self._calib_dev,
-                edge_prior=up(arrays.edge_prior),
-                edge_prior_w=up(arrays.edge_prior_w),
+                edge_prior=host(arrays.edge_prior),
+                edge_prior_w=host(arrays.edge_prior_w),
                 # The runtime LM iteration cap (0 = the full budget).
                 iters_cap=_iters_cap if _iters_cap > 0 else None)
-            solve, _ = get_solver(self._solver_cfg, dev)
+            if self.mesh is not None:
+                solve, _ = make_spmd_solver(self._solver_cfg, self.mesh)
+            else:
+                solve, _ = get_solver(self._solver_cfg, self.device)
             edge_pose, lm_state, dev_info = solve(batch)
             # ONE download: the window's state and its info together.
             flat = torch.cat(
@@ -902,7 +919,10 @@ class SrbaEngine:
         ``prior_scale`` scales the edge measurement priors' weights inside
         the sweep windows (the device prior table itself is untouched); the
         JAX package's docstring gives the measurement behind the default
-        0.02.  ``mesh`` (the window-sharded sweep) is not ported yet.
+        0.02.  With ``mesh`` each phase's windows are split over its ranks
+        (:func:`~srba_tpu_torch.solver.multi_window.make_sweep_step_mesh`;
+        padded with windows that own nothing to a multiple of the mesh
+        size), every rank holding the same masters on the mesh's device.
         Returns ``{"windows": ...}`` and the last phase's aggregated info
         (summed errors and observations, largest iterations and lambda)."""
         from srba_tpu_torch.solver.master import pack_window_ints
@@ -910,17 +930,20 @@ class SrbaEngine:
                                                         make_sweep_step_mesh,
                                                         plan_sweep_roots)
 
-        if mesh is not None:
-            make_sweep_step_mesh(self._solver_cfg, mesh)   # raises by name
         dm = self.device_master
         if dm is None:
             raise ValueError("refine_map requires the device-master engine "
                              "mode (device_master=True)")
+        if mesh is not None:
+            if mesh_device(mesh) != self.device:
+                raise ValueError(f"a mesh on {mesh_device(mesh)} for masters "
+                                 f"on {self.device}")
         self.flush_pending_closures()
         dm.flush_append()
         tree_depth = self.parameters.max_tree_depth
         depth = depth or self.parameters.max_optimize_depth
-        step = make_sweep_step(self._solver_cfg)
+        step = (make_sweep_step(self._solver_cfg) if mesh is None
+                else make_sweep_step_mesh(self._solver_cfg, mesh))
         dm.ensure_operands(self._whitener, self._sensor_pose_inv, self.calib)
         # Scale the prior WEIGHT column for the sweep on a copy: dm.prior
         # keeps the incremental path's priors.
@@ -953,6 +976,8 @@ class SrbaEngine:
             L = max(a.lm_gids.shape[0] for a, _, _ in wins)
             N = max(a.obs_z.shape[0] for a, _, _ in wins)
             W = len(wins)
+            if mesh is not None:
+                W = -(-W // mesh.size()) * mesh.size()
             T = 2 * E + 2 * L + 2 * N + 2 * N * tree_depth
             ints = np.zeros((W, T), np.int32)
             obs_z = np.zeros((W, N, self.state.z_dim), np.float32)
@@ -971,12 +996,16 @@ class SrbaEngine:
                 obs_z[wi, : a.obs_z.shape[0]] = a.obs_z
                 if a.obs_z.shape[0] < N:   # valid-valued padding rows
                     obs_z[wi, a.obs_z.shape[0]:] = a.obs_z[0]
+            # Padding windows (mesh divisibility): all-zero ints, so no
+            # ownership and no valid observation; window 0's measurements
+            # keep their rows non-degenerate.
+            obs_z[len(wins):] = obs_z[0]
             with self.profiler.scope("refine_map_phase"):
                 dm.pose, dm.lm, dev_info = step(
                     dm.pose, prior_in, dm.lm, ints, obs_z, dm._whitener_dev,
                     dm._spinv_dev, dm._calib_dev, E, L, N)
             dm.dirty = True
-            info_out["windows"] += float(W)
+            info_out["windows"] += float(len(wins))
         self._seed_cache = None   # the sweep moved poses wholesale
         self._closure_barrier_seq = dm.step_seq
         if dev_info is not None:
@@ -1127,7 +1156,8 @@ class SrbaEngine:
         the closure fits' anisotropic information shapes into the solve.
         ``profiler`` (a :class:`Profiler`, none by default) takes the
         solve's scopes and counters; its scopes wait for the device.
-        ``mesh`` (the edge-sharded solve) is not ported yet.
+        ``mesh`` (default: the engine's) splits the edges over its ranks
+        (:func:`~srba_tpu_torch.solver.global_graphslam.make_pgo_spmd`).
 
         Returns ``(G_opt [K, pose_dim], info)``.  With ``write_back`` the
         relative edge poses are re-derived from the optimized globals
@@ -1138,10 +1168,8 @@ class SrbaEngine:
         from srba_tpu_torch.solver.global_graphslam import (
             PGOConfig, optimize_global_pose_graph)
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "optimize_global(mesh=...) (the edge-sharded PGO) is not "
-                "ported to srba_tpu_torch yet")
+        if mesh is None:
+            mesh = self.mesh
         self.flush_pending_closures()
         if self.device_master is not None:
             self.device_master.flush_append()
@@ -1156,7 +1184,8 @@ class SrbaEngine:
         if periodic:
             lam0 = getattr(self, "_pgo_warm_lam", None)
         G_opt, info = optimize_global_pose_graph(
-            prob, cfg, lam0=lam0, device=self.device, profiler=profiler)
+            prob, cfg, lam0=lam0, mesh=mesh, device=self.device,
+            profiler=profiler)
         if periodic:
             self._pgo_warm_lam = float(info.get("lam", cfg.lam0))
         if write_back and self.state.num_edges:

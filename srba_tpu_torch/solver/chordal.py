@@ -17,9 +17,11 @@ chordal initializer, as in the JAX package:
 
 What differs from the JAX package: the segment sums over edge endpoints are
 the fixed-order gather-sums of :class:`~srba_tpu_torch.solver.pgo_ops.
-EdgeIncidence` (no atomics), the CG loops read their exit test on the host
-every trip (:func:`~srba_tpu_torch.solver.pgo_ops.pcg`), and the
-edge-sharded (``axis_name``) variant is not ported yet.
+EdgeIncidence` (no atomics), and the CG loops read their exit test on the
+host every trip (:func:`~srba_tpu_torch.solver.pgo_ops.pcg`).  With an
+``axis_name`` the edge tables are this rank's shard and every sum over
+edges is all-reduced where the JAX package ``psum``s it, so the CG exits,
+read from reduced values only, agree on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import torch
 
 from srba_tpu_torch.ops.lie import quat_to_matrix
 from srba_tpu_torch.solver.pgo_ops import EdgeIncidence, HostReads, pcg
+from srba_tpu_torch.utils.collectives import (all_reduce_packed,
+                                              axis_group, psum)
 
 
 def _so2_from_theta(theta):
@@ -91,15 +95,18 @@ def _project_so(M, d: int):
 
 
 def make_chordal_init(group_name: str, cg_iters: int = 300,
-                      cg_rtol: float = 1e-7):
+                      cg_rtol: float = 1e-7, axis_name=None, mesh=None):
     """Build ``init(G0, ea, eb, z, w) -> G_init`` for the given group
     ("SE2"/"SE3").  Shapes as in the PGO solver; ``w == 0`` rows are
     padding.  Nodes touched by no edge keep their ``G0`` values.  The
     optional ``incidence`` (an :class:`EdgeIncidence` of the edges; built
     from ``ea``/``eb`` when omitted) and ``reads`` (a :class:`HostReads`
-    that counts the CG loops' host reads) come from the caller's solve."""
+    that counts the CG loops' host reads) come from the caller's solve.
+    With ``axis_name`` the edges are this rank's shard of ``mesh`` (the
+    world when None) and the sums over edges are all-reduced."""
     d = 2 if group_name == "SE2" else 3
     ridge = 1e-6
+    group = axis_group(axis_name, mesh)
 
     def rotmats(G):
         if group_name == "SE2":
@@ -115,22 +122,23 @@ def make_chordal_init(group_name: str, cg_iters: int = 300,
         Rz = rotmats(z)                                         # [E, d, d]
         t0 = G0[..., :d]                                        # [K, d]
         tz = z[..., :d]                                         # [E, d]
-        w_mean = torch.sum(w) / torch.clamp_min(
-            torch.sum(w > 0).to(w.dtype), 1.0)
+        w_sum, w_count = all_reduce_packed(
+            (torch.sum(w), torch.sum(w > 0).to(w.dtype)), group)
+        w_mean = w_sum / torch.clamp_min(w_count, 1.0)
         anchor = torch.zeros((K,), dtype=G0.dtype, device=G0.device)
         anchor[0] = w_mean                                      # gauge
         pull = anchor + ridge
 
         # Degree (for the Jacobi preconditioner): per-node sum of incident
         # edge weights + anchor + Tikhonov ridge.
-        deg = inc.sum(w, w) + anchor + ridge
+        deg = psum(inc.sum(w, w), group) + anchor + ridge
 
         # ---- Stage 1: rotation averaging ----------------------------------
         # min sum_e w ||M_a Rz_e - M_b||^2 + anchor ||M_0 - R0_0||^2
         #   + ridge ||M - R0||^2   (the ridge keeps untouched nodes at R0).
         def Hv_rot(M):
             u = (M[ea] @ Rz - M[eb]) * w[:, None, None]
-            return inc.sum(u @ Rz.transpose(-1, -2), -u) \
+            return psum(inc.sum(u @ Rz.transpose(-1, -2), -u), group) \
                 + pull[:, None, None] * M
 
         dinv = 1.0 / deg
@@ -144,9 +152,9 @@ def make_chordal_init(group_name: str, cg_iters: int = 300,
 
         def Hv_t(t):
             u = (t[eb] - t[ea]) * w[:, None]
-            return inc.sum(-u, u) + pull[:, None] * t
+            return psum(inc.sum(-u, u), group) + pull[:, None] * t
 
-        rhs_t = inc.sum(-b_e, b_e) + pull[:, None] * t0
+        rhs_t = psum(inc.sum(-b_e, b_e), group) + pull[:, None] * t0
         t, _ = pcg(Hv_t, lambda r: dinv[:, None] * r, rhs_t, t0, cg_iters,
                    cg_rtol, reads)
 

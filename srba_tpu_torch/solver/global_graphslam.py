@@ -30,12 +30,18 @@ What differs from the JAX package, and why:
   ``default_matmul_precision("highest")`` pin.
 * The solve runs on an explicit ``device``; ``"cuda"`` without CUDA raises.
 * The edge-sharded SPMD path (``mesh=``, :func:`make_pgo_spmd`,
-  ``PGOConfig.axis_name``) is not ported yet and raises by name.
+  ``PGOConfig.axis_name``): nodes are replicated and every rank takes its
+  rows of the edge tables, with an ``EdgeIncidence`` of its own live
+  edges; Jᵀr, H·v, the block diagonal, the error and the error floor are
+  all-reduced where the JAX package ``psum``s them.  The host-read loop
+  exits then read only reduced values, so every rank takes the same
+  decisions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import sys
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -46,7 +52,9 @@ import torch
 
 from srba_tpu_torch.ops.block_linalg import spd_inverse
 from srba_tpu_torch.ops.lie import GROUPS
+from srba_tpu_torch.parallel.sharding import mesh_device, shard_rows
 from srba_tpu_torch.solver.pgo_ops import EdgeIncidence, HostReads, pcg
+from srba_tpu_torch.utils.collectives import axis_group, psum
 from srba_tpu_torch.utils.device import resolve_device
 
 
@@ -83,8 +91,8 @@ class PGOConfig:
     # Anisotropic per-edge information: the solve whitens every edge with a
     # ``Wsqrt`` [E, dof, dof] operand.
     use_edge_info: bool = False
-    # Mesh axis of the edge-sharded SPMD solve: not ported yet (must stay
-    # None).
+    # Mesh axis the edge tables are sharded over (None = one device): every
+    # edge-indexed reduction is all-reduced over it.
     axis_name: Optional[str] = None
 
 
@@ -134,17 +142,17 @@ def _scope(profiler, name: str, device: torch.device):
             torch.cuda.synchronize(device)
 
 
-def _make_pgo(cfg: PGOConfig):
+def _make_pgo(cfg: PGOConfig, mesh=None):
     """Build ``solve(G0, ea, eb, z, w, lam0, Wsqrt=None, incidence=None,
     profiler=None) -> (G_opt, info)`` for one configuration.  Operands are
     tensors on one device (``lam0`` a float); ``w`` carries validity (0 =
     padding edge) and constraint weight; ``incidence`` is the
     :class:`EdgeIncidence` of the edges (built from all of them when
-    omitted).  ``info`` holds the JAX package's keys as Python numbers."""
-    if cfg.axis_name is not None:
-        raise NotImplementedError(
-            "the edge-sharded PGO (PGOConfig.axis_name) is not ported to "
-            "srba_tpu_torch yet")
+    omitted).  ``info`` holds the JAX package's keys as Python numbers.
+    With ``cfg.axis_name`` the edge operands are this rank's shard of
+    ``mesh`` (the world when None) and the sums over edges are
+    all-reduced."""
+    reduce_group = axis_group(cfg.axis_name, mesh)
     group = GROUPS[cfg.group]
     dof = group.dof
     res_fn = _make_residual(group)
@@ -200,9 +208,9 @@ def _make_pgo(cfg: PGOConfig):
 
         def JT(r):
             # [K, dof] <- AᵀrA summed at node a, BᵀrB at node b
-            return inc.sum(torch.einsum("eij,ei->ej", A, r),
-                           torch.einsum("eij,ei->ej", B, r)) \
-                * gauge_mask[:, None]
+            return psum(inc.sum(torch.einsum("eij,ei->ej", A, r),
+                                torch.einsum("eij,ei->ej", B, r)),
+                        reduce_group) * gauge_mask[:, None]
 
         def Hv(v):
             v = v * gauge_mask[:, None]
@@ -212,8 +220,9 @@ def _make_pgo(cfg: PGOConfig):
 
         def block_diag():
             # [K, dof, dof] block-Jacobi preconditioner blocks of H
-            return inc.sum(torch.einsum("eij,eik->ejk", A, A),
-                           torch.einsum("eij,eik->ejk", B, B))
+            return psum(inc.sum(torch.einsum("eij,eik->ejk", A, A),
+                                torch.einsum("eij,eik->ejk", B, B)),
+                        reduce_group)
 
         return JT, Hv, block_diag
 
@@ -230,18 +239,21 @@ def _make_pgo(cfg: PGOConfig):
         comp = _comp(dt, dev)
         gauge_mask = torch.ones((K,), dtype=dt, device=dev)
         gauge_mask[0] = 0.0
-        err_floor = cfg.abs_tol_per_edge * torch.sum(w > 0)
+        err_floor = cfg.abs_tol_per_edge * psum(torch.sum(w > 0),
+                                                reduce_group)
         zeros = torch.zeros(ea.shape + (dof,), dtype=dt, device=dev)
 
         def err_of(G):
             r = res_fn(G[ea], G[eb], z, zeros, zeros)
-            return torch.sum(_robust_cost(_sq(r, w, comp, Wsqrt)))
+            return psum(torch.sum(_robust_cost(_sq(r, w, comp, Wsqrt))),
+                        reduce_group)
 
         if cfg.chordal_init:
             from srba_tpu_torch.solver.chordal import make_chordal_init
             with _scope(profiler, "pgo_chordal", dev):
                 G0 = make_chordal_init(cfg.group, cfg.chordal_cg_iters,
-                                       cg_rtol=cfg.cg_rtol)(
+                                       cg_rtol=cfg.cg_rtol,
+                                       axis_name=cfg.axis_name, mesh=mesh)(
                     G0, ea, eb, z, w, incidence=inc, reads=reads)
         with _scope(profiler, "pgo_eval", dev):
             err0 = err_of(G0)
@@ -305,11 +317,45 @@ def _make_pgo(cfg: PGOConfig):
     return solve
 
 
+@functools.lru_cache(maxsize=None)
 def make_pgo_spmd(cfg: PGOConfig, mesh):
-    """The JAX package's edge-sharded SPMD PGO: not ported yet."""
-    raise NotImplementedError(
-        "make_pgo_spmd (the edge-sharded PGO over a mesh) is not ported to "
-        "srba_tpu_torch yet")
+    """Edge-sharded SPMD PGO over ``mesh``'s single axis: nodes replicated,
+    edge tables split, per-edge reductions all-reduced (see
+    ``PGOConfig.axis_name``).  Returns ``solve(G0, ea, eb, z, w, lam0,
+    Wsqrt=None, num_live=None, profiler=None) -> (G_opt, info)``, as the
+    single-device solve's, where the edge operands are the FULL tables as
+    host arrays, the same on every rank, their row count a multiple of the
+    mesh size (pad with ``w = 0`` edges), the first ``num_live`` rows (all
+    by default) the live edges.  Each rank uploads its rows ``[r*E/W,
+    (r+1)*E/W)`` and their :class:`EdgeIncidence` (its live rows only) to
+    the mesh's device; ``G0`` (host or tensor) is replicated.  Every rank
+    ends with the same result.  Cached per ``(cfg, mesh)``."""
+    (axis,) = mesh.mesh_dim_names
+    if cfg.axis_name != axis:
+        cfg = dataclasses.replace(cfg, axis_name=axis)
+    inner = _make_pgo(cfg, mesh)
+    dev = mesh_device(mesh)
+
+    def solve(G0, ea, eb, z, w, lam0, Wsqrt=None, num_live=None,
+              profiler=None):
+        rows = shard_rows(len(ea), mesh)
+        n_live = len(ea) if num_live is None else int(num_live)
+        n_live = min(max(n_live - rows.start, 0), rows.stop - rows.start)
+        G0 = torch.as_tensor(G0, dtype=torch.float32, device=dev)
+
+        def shard(a, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(a)[rows], dtype=dtype,
+                                   device=dev)
+
+        ea_s, eb_s = np.asarray(ea)[rows], np.asarray(eb)[rows]
+        inc = EdgeIncidence(ea_s[:n_live], eb_s[:n_live], G0.shape[0],
+                            len(ea_s), dev)
+        return inner(G0, shard(ea, torch.int64), shard(eb, torch.int64),
+                     shard(z), shard(w), lam0,
+                     None if Wsqrt is None else shard(Wsqrt),
+                     incidence=inc, profiler=profiler)
+
+    return solve
 
 
 def optimize_global_pose_graph(problem: dict,
@@ -334,11 +380,16 @@ def optimize_global_pose_graph(problem: dict,
     Profiler`) records the scopes ``pgo_chordal``, ``pgo_linearize``,
     ``pgo_cg`` and ``pgo_eval`` (each waits for the device before it
     closes), the counters ``pgo_solves`` and ``pgo_host_syncs``, and
-    ``pgo_incidence_width``, the width of the incidence table.
-    ``mesh`` (the edge-sharded solve) is not ported yet."""
-    if mesh is not None:
-        make_pgo_spmd(cfg, mesh)
+    ``pgo_incidence_width``, the width of the incidence table.  With
+    ``mesh`` the edges are split over its ranks (:func:`make_pgo_spmd`,
+    escalations too; the edge bucket padded to a multiple of the mesh
+    size), on the mesh's device, which must be of ``device``'s type."""
     dev = resolve_device(device)
+    if mesh is not None:
+        if mesh_device(mesh).type != dev.type:
+            raise ValueError(f"device {str(device)!r} on a "
+                             f"{mesh.device_type} mesh")
+        dev = mesh_device(mesh)
     group_name = problem["group"]
     if cfg is None:
         cfg = PGOConfig(group=group_name)
@@ -376,10 +427,12 @@ def optimize_global_pose_graph(problem: dict,
         if nodes.shape[1] == 7:
             pad_nodes[:, 3] = 1.0        # identity quaternion
         nodes = np.concatenate([nodes, pad_nodes])
+    if mesh is not None:
+        Ep = -(-Ep // mesh.size()) * mesh.size()
     # The incidence table holds the live edges only: the Ep - E padding
     # edges would all sit at node 0 and widen it to their number, and they
     # add exact zeros.
-    inc = EdgeIncidence(ea, eb, Kp, Ep, dev)
+    inc = None if mesh is not None else EdgeIncidence(ea, eb, Kp, Ep, dev)
     if Ep != E:   # pad with weight-0 self-anchored edges
         pad = Ep - E
         ea = np.concatenate([ea, np.zeros(pad, np.int32)])
@@ -393,13 +446,20 @@ def optimize_global_pose_graph(problem: dict,
     def to_dev(a, dtype=torch.float32):
         return torch.as_tensor(a, dtype=dtype, device=dev)
 
-    ea_d, eb_d = to_dev(ea, torch.int64), to_dev(eb, torch.int64)
-    z_d, w_d = to_dev(z), to_dev(w)
-    Wsqrt_d = None if Wsqrt is None else to_dev(Wsqrt)
-    G, info = _make_pgo(cfg)(
-        to_dev(nodes), ea_d, eb_d, z_d, w_d,
-        cfg.lam0 if lam0 is None else lam0, Wsqrt_d, incidence=inc,
-        profiler=profiler)
+    if mesh is not None:
+        def solve(cfg, G0, lam):
+            return make_pgo_spmd(cfg, mesh)(
+                G0, ea, eb, z, w, lam, Wsqrt, num_live=E, profiler=profiler)
+    else:
+        ea_d, eb_d = to_dev(ea, torch.int64), to_dev(eb, torch.int64)
+        z_d, w_d = to_dev(z), to_dev(w)
+        Wsqrt_d = None if Wsqrt is None else to_dev(Wsqrt)
+
+        def solve(cfg, G0, lam):
+            return _make_pgo(cfg)(G0, ea_d, eb_d, z_d, w_d, lam, Wsqrt_d,
+                                  incidence=inc, profiler=profiler)
+
+    G, info = solve(cfg, to_dev(nodes), cfg.lam0 if lam0 is None else lam0)
     err0, iters = float(info["err_init"]), float(info["iters"])
     # Unconverged at the iteration cap: warm-restart from the current
     # iterate AND current lambda, with chordal init off (it would reset the
@@ -407,10 +467,8 @@ def optimize_global_pose_graph(problem: dict,
     esc = 0
     while not bool(info["converged"]) and esc < max_escalations:
         esc += 1
-        esc_cfg = dataclasses.replace(cfg, chordal_init=False)
-        G, info = _make_pgo(esc_cfg)(
-            G, ea_d, eb_d, z_d, w_d, info["lam"], Wsqrt_d, incidence=inc,
-            profiler=profiler)
+        G, info = solve(dataclasses.replace(cfg, chordal_init=False), G,
+                        info["lam"])
         iters += float(info["iters"])
     if not bool(info["converged"]):
         print(f"[srba] WARNING: global PGO unconverged after {iters:.0f} LM "

@@ -42,6 +42,14 @@ What differs from the JAX package, and why:
   the JAX package's ``default_matmul_precision("highest")`` pin.
 * Masking uses ``torch.where``, never a multiply, wherever a padded row
   could carry a NaN into a sum.
+* Observation sharding (``SolverConfig.axis_name``): the batch's
+  observation tables are this rank's shard of a mesh
+  (:mod:`srba_tpu_torch.parallel.sharding`); the partial normal equations
+  ``(Hp, gp, Hf, gf, Hpf)`` are summed over the ranks in ONE
+  ``dist.all_reduce`` round per LM iteration (the JAX package's
+  ``_psum_packed``) and the error sum in one more, each before the
+  replicated edge priors are added; the reduced system is solved whole on
+  every rank.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import functools
 from dataclasses import dataclass
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from srba_tpu_torch.models.landmarks import LANDMARK_TYPES
@@ -58,6 +67,8 @@ from srba_tpu_torch.models.observations import OBSERVATION_MODELS
 from srba_tpu_torch.ops.block_linalg import spd_inverse
 from srba_tpu_torch.ops.lie import GROUPS
 from srba_tpu_torch.ops.robust import pseudo_huber_cost, pseudo_huber_weight
+from srba_tpu_torch.utils.collectives import (all_reduce_packed,
+                                              axis_group, psum)
 from srba_tpu_torch.utils.device import resolve_device
 from srba_tpu_torch.utils.registry import lookup
 
@@ -91,11 +102,12 @@ class WindowBatch:
     iters_cap: Optional[int] = None
 
     def to(self, device) -> "WindowBatch":
-        """Copy every tensor field to ``device``."""
+        """Copy every array field (tensor or numpy, dtype kept) to
+        ``device``."""
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
+            f.name: torch.as_tensor(getattr(self, f.name), device=device)
             for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)})
+            if isinstance(getattr(self, f.name), (torch.Tensor, np.ndarray))})
 
 
 @dataclass(frozen=True)
@@ -121,6 +133,8 @@ class SolverConfig:
     diag_floor: float = 1e-8
     max_consec_rejects: int = 6
     neq: str = "onehot"            # | "segmented"
+    # The mesh axis the observation tables are sharded over (None = one
+    # device): sums over observations are all-reduced over it.
     axis_name: Optional[str] = None
 
 
@@ -132,10 +146,6 @@ PORTED_NEQ = {"onehot": "onehot", "segmented": "segmented"}
 def _resolve(cfg: SolverConfig):
     lookup(PORTED_SOLVERS, cfg.solver, "solver")
     lookup(PORTED_NEQ, cfg.neq, "normal-equation backend (neq)")
-    if cfg.axis_name is not None:
-        raise NotImplementedError(
-            "observation-sharded (axis_name) solves are not ported to "
-            "srba_tpu_torch yet")
     return (lookup(GROUPS, cfg.pose_group, "pose group"),
             lookup(OBSERVATION_MODELS, cfg.obs_model, "observation model"),
             lookup(LANDMARK_TYPES, cfg.lm_type, "landmark type"))
@@ -317,7 +327,7 @@ def make_linearize(cfg: SolverConfig):
     return _linearize, _prior_linearize
 
 
-def make_solver_impl(cfg: SolverConfig):
+def make_solver_impl(cfg: SolverConfig, mesh=None):
     """Build the LM optimizer for one problem configuration.  It runs on
     whatever device its batch lives on.
 
@@ -325,8 +335,17 @@ def make_solver_impl(cfg: SolverConfig):
     ``solve(batch) -> (edge_pose, lm_state, info)`` where ``info`` is a dict
     of 0-dim device tensors (``err_init``, ``err_final``, ``iters``,
     ``lam``, ``num_obs``) — nothing is read back to the host.
+
+    With ``cfg.axis_name`` set, the batch's observation tables are this
+    rank's shard: the sums over observations are all-reduced over the
+    ``axis_name`` dimension of ``mesh`` (the whole world's group when
+    ``mesh`` is None), two rounds per LM iteration (normal equations,
+    error) plus one for ``err_init`` and one for ``num_obs``, and every rank
+    ends with the same result.  :func:`srba_tpu_torch.parallel.sharding.
+    make_spmd_solver` shards a full batch and calls this.
     """
     group, _, lmt = _resolve(cfg)
+    reduce_group = axis_group(cfg.axis_name, mesh)
     pdof = group.dof
     D = cfg.max_depth
     _linearize, _prior_linearize = make_linearize(cfg)
@@ -349,7 +368,10 @@ def make_solver_impl(cfg: SolverConfig):
                             * b.obs_valid)
         else:
             err = torch.sum(sq)
+        err = psum(err, reduce_group)
         if b.edge_prior is not None:
+            # Every rank holds the whole edge table: the prior cost is added
+            # after the sum over ranks, once.
             rp, wp = _prior_residuals(edge_pose, b)
             err = err + torch.sum(torch.sum(rp * rp, dim=-1) * wp)
         return err
@@ -428,10 +450,13 @@ def make_solver_impl(cfg: SolverConfig):
             Cpl = torch.einsum("nodi,nol->ndil", Jb, Jl)       # [N,D,p,l]
             Hpf = segment_sum(Cpl.reshape(N * D, pdof, ldof),
                               plan_le).reshape(L, P, ldof)
+        # The sum over the ranks' observation shards, in one round.
+        Hp, gp, Hf, gf, Hpf = all_reduce_packed((Hp, gp, Hf, gf, Hpf),
+                                          reduce_group)
 
         if b.edge_prior is not None:
             # Edge measurement priors: block-diagonal H += w JtJ, g += w Jtr
-            # per opt edge.
+            # per opt edge (replicated: added after the sum over ranks).
             rp, Jpr = _prior_linearize(edge_pose, b, jac=True)  # Jpr [E,p,p]
             wp = b.edge_prior_w * b.edge_opt
             rp = torch.where(wp[:, None] > 0, rp, 0.0)
@@ -510,7 +535,7 @@ def make_solver_impl(cfg: SolverConfig):
             "err_final": err,
             "iters": it,
             "lam": lam,
-            "num_obs": torch.sum(b.obs_valid),
+            "num_obs": psum(torch.sum(b.obs_valid), reduce_group),
         }
         return edge, lm, info
 
@@ -523,7 +548,12 @@ def make_solver_impl(cfg: SolverConfig):
 def make_lm_solver(cfg: SolverConfig, device="cuda"):
     """Single-device LM optimizer on ``device`` (see
     :func:`make_solver_impl`); each call moves its batch there first.
-    ``device="cuda"`` without CUDA raises."""
+    ``device="cuda"`` without CUDA raises; an ``axis_name`` too (a sharded
+    solve is :func:`srba_tpu_torch.parallel.sharding.make_spmd_solver`'s)."""
+    if cfg.axis_name is not None:
+        raise ValueError("make_lm_solver is the single-device solver; use "
+                         "srba_tpu_torch.parallel.make_spmd_solver for "
+                         f"axis_name={cfg.axis_name!r}")
     dev = resolve_device(device)
     solve, eval_error = make_solver_impl(cfg)
     return (lambda b: solve(b.to(dev)), lambda b: eval_error(b.to(dev)))

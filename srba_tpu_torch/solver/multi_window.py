@@ -33,6 +33,12 @@ Ownership is disjoint, so a row gets at most one non-zero delta and its
 duplicate and padding slots add exact zeros: the result does not depend on
 the order of ``index_add_``'s atomics.
 
+On a mesh (:func:`make_sweep_step_mesh`) the ``W`` axis is split over the
+ranks: each rank solves its windows against the same masters, adds its
+masked deltas into zeroed fields, and the fields are summed over the ranks
+in one all-reduce.  Ownership is disjoint, so each master row sums one
+delta and exact zeros, whatever the order: the result is deterministic.
+
 Repeated sweeps converge like Gauss-Seidel over areas; pair with the global
 PGO (:mod:`srba_tpu_torch.solver.global_graphslam`) for long-range error.
 """
@@ -43,14 +49,17 @@ import functools
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from srba_tpu_torch.ops.block_linalg import spd_inverse
 from srba_tpu_torch.ops.robust import pseudo_huber_cost, pseudo_huber_weight
+from srba_tpu_torch.parallel.sharding import shard_rows
 from srba_tpu_torch.solver.lm import (SolverConfig, WindowBatch, _resolve,
                                       lm_state, lm_update, make_linearize,
                                       scaled_chol_solve, segment_plans,
                                       segment_sum)
 from srba_tpu_torch.solver.master import _to_device
+from srba_tpu_torch.utils.collectives import all_reduce_packed
 
 SWEEP_AXIS = "win"
 
@@ -287,23 +296,20 @@ def _agg_info(info):
     }
 
 
-@functools.lru_cache(maxsize=None)
-def make_sweep_step(cfg: SolverConfig):
-    """Single-device sweep: ``step(pose_master, prior_master, lm_master,
-    ints [W, T], obs_z [W, N, z_dim], whitener, sensor_pose_inv, calib, E,
-    L, N) -> (pose_master, lm_master, info)``.  ``ints`` (int32) and
-    ``obs_z`` (f32) are host arrays: row w is window w's
-    :func:`~srba_tpu_torch.solver.master.pack_window_ints` buffer (its opt
-    masks are the ownership masks) and its observations; each is uploaded
-    once.  The masters are updated in place (returned for symmetry with the
-    JAX package's donated ones); ``info`` holds 0-dim device tensors."""
+def _make_solve_windows(cfg: SolverConfig):
+    """``solve_windows(pose_master, prior_master, lm_master, ints, obs_z,
+    whitener, sensor_pose_inv, calib, E, L, N) -> (edge_ids [W, E], dp,
+    lm_ids [W, L], dl, info)``: the windows of ``ints``/``obs_z`` (host
+    arrays, uploaded once) solved in one batched solve against the masters,
+    with their deltas zeroed (``torch.where``) outside each window's
+    ownership and ``info`` of ``[W]`` tensors."""
     solve, _ = make_batched_solver(cfg)
     D = cfg.max_depth
 
-    def step(pose_master, prior_master, lm_master, ints, obs_z,
-             whitener, sensor_pose_inv, calib, E, L, N):
+    def solve_windows(pose_master, prior_master, lm_master, ints, obs_z,
+                      whitener, sensor_pose_inv, calib, E, L, N):
         dev = pose_master.device
-        pose_dim, lm_dim = pose_master.shape[1], lm_master.shape[1]
+        pose_dim = pose_master.shape[1]
         ints = _to_device(torch.as_tensor(ints, dtype=torch.int32), dev)
         obs_z = _to_device(torch.as_tensor(obs_z, dtype=torch.float32), dev)
         W = ints.shape[0]
@@ -329,20 +335,76 @@ def make_sweep_step(cfg: SolverConfig):
         # adds exactly 0 whatever its solve produced.
         dp = torch.where(edge_opt[..., None] > 0, new_edge - edge_pose, 0.0)
         dl = torch.where(lm_opt[..., None] > 0, new_lm - lm_state, 0.0)
+        return edge_ids, dp, lm_ids, dl, info
+
+    return solve_windows
+
+
+@functools.lru_cache(maxsize=None)
+def make_sweep_step(cfg: SolverConfig):
+    """Single-device sweep: ``step(pose_master, prior_master, lm_master,
+    ints [W, T], obs_z [W, N, z_dim], whitener, sensor_pose_inv, calib, E,
+    L, N) -> (pose_master, lm_master, info)``.  ``ints`` (int32) and
+    ``obs_z`` (f32) are host arrays: row w is window w's
+    :func:`~srba_tpu_torch.solver.master.pack_window_ints` buffer (its opt
+    masks are the ownership masks) and its observations; each is uploaded
+    once.  The masters are updated in place (returned for symmetry with the
+    JAX package's donated ones); ``info`` holds 0-dim device tensors."""
+    solve_windows = _make_solve_windows(cfg)
+
+    def step(pose_master, prior_master, lm_master, ints, obs_z,
+             whitener, sensor_pose_inv, calib, E, L, N):
+        edge_ids, dp, lm_ids, dl, info = solve_windows(
+            pose_master, prior_master, lm_master, ints, obs_z, whitener,
+            sensor_pose_inv, calib, E, L, N)
         pose_master.index_add_(0, edge_ids.reshape(-1),
-                               dp.reshape(-1, pose_dim))
-        lm_master.index_add_(0, lm_ids.reshape(-1), dl.reshape(-1, lm_dim))
+                               dp.reshape(-1, pose_master.shape[1]))
+        lm_master.index_add_(0, lm_ids.reshape(-1),
+                             dl.reshape(-1, lm_master.shape[1]))
         return pose_master, lm_master, _agg_info(info)
 
     return step
 
 
+@functools.lru_cache(maxsize=None)
 def make_sweep_step_mesh(cfg: SolverConfig, mesh):
-    """The mesh-sharded sweep (the ``W`` axis split over devices) is not
-    ported yet."""
-    raise NotImplementedError(
-        "make_sweep_step_mesh (the mesh-sharded refine_map sweep) is not "
-        "ported to srba_tpu_torch yet")
+    """The mesh-sharded sweep: :func:`make_sweep_step`'s ``step``, with the
+    ``W`` windows (a multiple of the mesh size, every rank passing all of
+    them) split over ``mesh``'s ranks, rank r solving windows ``[r*W/n,
+    (r+1)*W/n)``.  Every rank holds the same masters; each adds its masked
+    deltas into zeroed fields, which are summed over the ranks with the
+    info's sums in one all-reduce round (the info's maxima in a second),
+    and then into the masters.  Every rank ends with the same masters and
+    info."""
+    solve_windows = _make_solve_windows(cfg)
+    (axis,) = mesh.mesh_dim_names
+    group = mesh.get_group(axis)
+
+    def step(pose_master, prior_master, lm_master, ints, obs_z,
+             whitener, sensor_pose_inv, calib, E, L, N):
+        rows = shard_rows(len(ints), mesh)
+        edge_ids, dp, lm_ids, dl, info = solve_windows(
+            pose_master, prior_master, lm_master, ints[rows], obs_z[rows],
+            whitener, sensor_pose_inv, calib, E, L, N)
+        dpose = torch.zeros_like(pose_master).index_add_(
+            0, edge_ids.reshape(-1), dp.reshape(-1, pose_master.shape[1]))
+        dlm = torch.zeros_like(lm_master).index_add_(
+            0, lm_ids.reshape(-1), dl.reshape(-1, lm_master.shape[1]))
+        agg = _agg_info(info)
+        sums = ("err_init", "err_final", "num_obs")
+        dpose, dlm, *summed = all_reduce_packed(
+            (dpose, dlm) + tuple(agg[k] for k in sums), group)
+        # The maxima as the per-window aggregation takes them.
+        iters, lam = all_reduce_packed(
+            (agg["iters"].to(agg["lam"].dtype), agg["lam"]), group,
+            op=dist.ReduceOp.MAX)
+        pose_master.add_(dpose)
+        lm_master.add_(dlm)
+        out = dict(zip(sums, summed))
+        out.update(iters=iters.to(agg["iters"].dtype), lam=lam)
+        return pose_master, lm_master, out
+
+    return step
 
 
 def plan_sweep_roots(engine, stride: Optional[int] = None,

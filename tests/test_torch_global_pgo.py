@@ -306,14 +306,33 @@ def test_profiler_scopes_and_host_syncs():
 
 
 def test_unported_mesh_paths_raise(monkeypatch):
+    """The mesh paths are ported: on a one-rank gloo mesh the edge-sharded
+    solve (through ``mesh=``, through :func:`make_pgo_spmd` on the padded
+    tables, and with ``axis_name`` over the world's group) is bitwise the
+    unsharded one; CUDA where there is none still raises."""
+    from tests.test_torch_sharding import one_rank_mesh
+
+    mesh = one_rank_mesh()
     prob, _ = _circle_problem("SE2", K=20)
-    with pytest.raises(NotImplementedError, match="make_pgo_spmd"):
-        tg.optimize_global_pose_graph(prob, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tg.make_pgo_spmd(tg.PGOConfig("SE2"), object())
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        tg.optimize_global_pose_graph(
-            prob, tg.PGOConfig("SE2", axis_name="edges"), device="cpu")
+    G, info = tg.optimize_global_pose_graph(prob, device="cpu")
+    G_m, info_m = tg.optimize_global_pose_graph(prob, mesh=mesh,
+                                                device="cpu")
+    np.testing.assert_array_equal(G_m, G)
+    assert info_m == info
+    ea = np.asarray([e["from"] for e in prob["edges"]])
+    eb = np.asarray([e["to"] for e in prob["edges"]])
+    z = np.stack([e["rel_pose"] for e in prob["edges"]])
+    w = np.ones(len(ea), np.float32)
+    G_s, info_s = tg.make_pgo_spmd(tg.PGOConfig("SE2"), mesh)(
+        prob["nodes"], ea, eb, z, w, 1e-4)
+    G_1, info_1 = tg._make_pgo(tg.PGOConfig("SE2"))(
+        torch.as_tensor(prob["nodes"]), torch.as_tensor(ea),
+        torch.as_tensor(eb), torch.as_tensor(z), torch.as_tensor(w), 1e-4)
+    assert torch.equal(G_s, G_1) and info_s == info_1
+    G_a, info_a = tg.optimize_global_pose_graph(
+        prob, tg.PGOConfig("SE2", axis_name="edges"), device="cpu")
+    np.testing.assert_array_equal(G_a, G)
+    assert info_a == info
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tg.optimize_global_pose_graph(prob, device="cuda")

@@ -154,11 +154,17 @@ def test_host_mode_entry_points():
     skip = T.SrbaEngine("RangeBearing2D", device_master=False, device="cpu")
     skip.define_new_keyframe([T.Observation(lm_id=0, z=[1.0, 0.1])])
     assert skip.optimize_local_area(0, 2) == {"skipped": 1.0}
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.SrbaEngine("RangeBearing2D", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.SrbaEngine("RangeBearing2D", device_master=False, mesh=object(),
-                     device="cpu")
+    # A mesh (here of one gloo rank) takes the host-window mode whatever
+    # device_master asks, and solves its windows bitwise as this mode does.
+    from tests.test_torch_sharding import one_rank_mesh
+    for dm in (True, False):
+        m = T.SrbaEngine("RangeBearing2D", device_master=dm,
+                         mesh=one_rank_mesh(), device="cpu")
+        assert m.device_master is None and m.device == torch.device("cpu")
+    m, _ = _port(False, run_local=False, mesh=one_rank_mesh())
+    assert m.optimize_local_area(m.num_keyframes - 1) == info
+    np.testing.assert_array_equal(m.state.k2k_pose, eng.state.k2k_pose)
+    np.testing.assert_array_equal(m.state.lm_state, eng.state.lm_state)
 
 
 def test_closure_bootstrap_in_both_modes():

@@ -94,8 +94,15 @@ def test_unported_names_raise(what):
         elif what == "neq":
             make_solver_impl(SolverConfig(**{**base, "neq": "scatter"}))
         else:
-            # The host-window mode is ported; the mesh path is not.
-            SrbaEngine("RangeBearing2D", mesh=object(), device="cpu")
+            # Every engine path is ported, the mesh path last: it runs on a
+            # one-rank gloo mesh (the host-window mode on the mesh's
+            # device), and a name neither package has still raises.
+            from tests.test_torch_sharding import one_rank_mesh
+            eng = SrbaEngine("RangeBearing2D", mesh=one_rank_mesh(),
+                             device="cpu")
+            assert eng.device_master is None and eng.mesh is not None
+            SrbaEngine("RangeBearing2D", lm_type="InverseDepth",
+                       mesh=one_rank_mesh(), device="cpu")
     assert "not ported" in str(ei.value)
 
 
@@ -214,13 +221,22 @@ def test_pgo_modules_import_without_jax(mod):
 
 
 def test_unported_global_pgo_paths_raise():
-    """The edge-sharded global PGO is not ported: the engine's
-    ``optimize_global(mesh=...)`` raises by name, before any solve."""
-    from srba_tpu_torch import SrbaEngine
+    """The edge-sharded global PGO is ported (the last of the global PGO's
+    paths): the engine's ``optimize_global(mesh=...)`` on a one-rank gloo
+    mesh gives bitwise the unsharded solve of the same map."""
+    from srba_tpu_torch import Observation, SrbaEngine
+    from tests.test_torch_sharding import one_rank_mesh
 
     eng = SrbaEngine("RelativePoses2D", device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.optimize_global(mesh=object())
+    odo = np.asarray([1.0, 0.0, 0.3], np.float32)
+    for k in range(6):
+        eng.define_new_keyframe(
+            [Observation(lm_id=k - 1, z=odo)] if k else [],
+            edge_init={k - 1: odo} if k else None)
+    G, info = eng.optimize_global(write_back=False)
+    G_m, info_m = eng.optimize_global(write_back=False, mesh=one_rank_mesh())
+    np.testing.assert_array_equal(G_m, G)
+    assert info_m == info
 
 
 @pytest.mark.parametrize("mod", ["srba_tpu_torch.solver.multi_window",
@@ -299,29 +315,86 @@ def test_cli_io_native_modules_import_with_jax_blocked(mod):
                                   "sweep_step_mesh", "refine_map_mesh",
                                   "optimize_global_mesh", "pgo_spmd"])
 def test_only_mesh_paths_raise(what):
-    """What the port still lacks is the mesh and multi-process execution
-    (the JAX package's ``parallel/``): each of those entry points raises
-    ``NotImplementedError`` by name, before any work."""
-    from srba_tpu_torch import SrbaEngine
-    from srba_tpu_torch.solver.global_graphslam import (PGOConfig,
-                                                        make_pgo_spmd)
+    """The mesh and multi-process execution (the JAX package's
+    ``parallel/``) was the last of the port; no entry point raises
+    ``NotImplementedError`` any more.  Each mesh entry point runs on a
+    one-rank gloo mesh and gives bitwise its unsharded result (the solver
+    and the sweep step are held whole in tests/test_torch_sharding.py and
+    tests/test_torch_refine_map.py)."""
+    import torch.distributed as dist
+
+    from srba_tpu_torch import Observation, SrbaEngine
+    from srba_tpu_torch.solver.global_graphslam import (
+        PGOConfig, make_pgo_spmd, optimize_global_pose_graph)
     from srba_tpu_torch.solver.lm import SolverConfig, make_solver_impl
     from srba_tpu_torch.solver.multi_window import make_sweep_step_mesh
+    from tests.test_torch_sharding import CountAllReduce, one_rank_mesh
 
+    mesh = one_rank_mesh()
     cfg = SolverConfig(obs_model="RangeBearing2D", pose_group="SE2",
                        lm_type="Euclidean2D", max_depth=3)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        if what == "engine_mesh":
-            SrbaEngine("RangeBearing2D", mesh=object(), device="cpu")
-        elif what == "solver_axis_name":
-            make_solver_impl(dataclasses.replace(cfg, axis_name="obs"))
-        elif what == "sweep_step_mesh":
-            make_sweep_step_mesh(cfg, object())
-        elif what == "refine_map_mesh":
-            SrbaEngine("RangeBearing2D", device="cpu").refine_map(
-                mesh=object())
-        elif what == "optimize_global_mesh":
-            SrbaEngine("RelativePoses2D", device="cpu").optimize_global(
-                mesh=object())
-        else:
-            make_pgo_spmd(PGOConfig(group="SE2"), object())
+    odo = np.asarray([0.5, 0.0, 0.2], np.float32)
+
+    def drive(eng, run_local=True):
+        for k in range(5):
+            eng.define_new_keyframe(
+                [Observation(lm_id=j, z=np.asarray(
+                    [1.0 + 0.1 * j, 0.2 * j - 0.3 * k], np.float32))
+                 for j in range(4)],
+                edge_init={k - 1: odo} if k else None,
+                run_local_optimization=run_local)
+        return eng
+
+    if what == "engine_mesh":
+        a = drive(SrbaEngine("RangeBearing2D", mesh=mesh, device="cpu"))
+        b = drive(SrbaEngine("RangeBearing2D", device_master=False,
+                             device="cpu"))
+        assert a.device_master is None
+        np.testing.assert_array_equal(a.state.k2k_pose, b.state.k2k_pose)
+        np.testing.assert_array_equal(a.state.lm_state, b.state.lm_state)
+    elif what == "solver_axis_name":
+        # The world's group stands for the mesh: 2 rounds per LM iteration
+        # plus err_init and num_obs.
+        solve, _ = make_solver_impl(dataclasses.replace(cfg,
+                                                        axis_name="obs"))
+        eng = drive(SrbaEngine("RangeBearing2D", device_master=False,
+                               device="cpu"), run_local=False)
+        from srba_tpu_torch.solver.window import build_window
+        arrays, _ = build_window(eng.state, eng.graph, 4, 3, 3)
+        from srba_tpu_torch.solver.lm import WindowBatch
+        batch = WindowBatch(
+            **{f: torch.as_tensor(np.asarray(getattr(arrays, f)))
+               for f in ("edge_pose", "edge_opt", "lm_state", "lm_opt",
+                         "obs_z", "obs_lm", "path_edge", "path_sign",
+                         "obs_valid")},
+            whitener=torch.eye(2), sensor_pose_inv=torch.zeros(3))
+        with CountAllReduce(dist) as count:
+            e, l, info = solve(batch)
+        e1, l1, info1 = make_solver_impl(cfg)[0](batch)
+        assert torch.equal(e, e1) and torch.equal(l, l1)
+        assert count.calls == 2 * cfg.max_iters + 2
+    elif what in ("sweep_step_mesh", "refine_map_mesh"):
+        a = drive(SrbaEngine("RangeBearing2D", device="cpu"), False)
+        b = drive(SrbaEngine("RangeBearing2D", device="cpu"), False)
+        assert callable(make_sweep_step_mesh(a._solver_cfg, mesh))
+        ia = a.refine_map(stride=2, mesh=mesh)
+        ib = b.refine_map(stride=2)
+        assert ia == ib and ia["windows"] > 0
+        assert torch.equal(a.device_master.pose, b.device_master.pose)
+        assert torch.equal(a.device_master.lm, b.device_master.lm)
+    elif what == "optimize_global_mesh":
+        eng = drive(SrbaEngine("RangeBearing2D", device="cpu"))
+        G, info = eng.optimize_global(write_back=False)
+        G_m, info_m = eng.optimize_global(write_back=False, mesh=mesh)
+        np.testing.assert_array_equal(G_m, G)
+        assert info_m == info
+    else:
+        from tests.test_global_pgo import _circle_problem
+        prob, _ = _circle_problem("SE2", K=20)
+        G, info = optimize_global_pose_graph(prob, PGOConfig("SE2"),
+                                             device="cpu")
+        G_m, info_m = optimize_global_pose_graph(prob, PGOConfig("SE2"),
+                                                 mesh=mesh, device="cpu")
+        assert callable(make_pgo_spmd(PGOConfig("SE2"), mesh))
+        np.testing.assert_array_equal(G_m, G)
+        assert info_m == info

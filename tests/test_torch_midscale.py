@@ -297,3 +297,55 @@ def test_config5_rounding_spread(monkeypatch):
         r = np.asarray(list(by_kf.values()))
         assert np.median(r) > cs.CONFIG5_STEP_MEDIAN_RTOL, name
     assert max(ates) - min(ates) < cs.CONFIG5_ATE_AGREE
+
+
+@pytest.mark.slow
+def test_refine_map_rounding_spread(monkeypatch):
+    """Where ``chip_smoke.py`` phase 23's limit on the two-rank sweep comes
+    from: phase 18's ``refine_map(sweeps=3)`` on config #1's raw-odometry
+    map, on the CPU, unperturbed and with the masters nudged by 1e-7 or
+    1e-6 (relative; 15 seeds each) before the sweeps.  A window's LM
+    accepts and rejects steps at f32 noise, so the sweeps end up to ~2%
+    apart in error; none of the nudged runs lies ``RING_REFINE_RTOL`` from
+    the unperturbed one.  With a fault (the deltas of the second half of
+    every phase's windows dropped, as a rank whose all-reduce share went
+    missing would leave them) the error lies beyond it.  ``-s`` prints
+    every reading."""
+    from srba_tpu_torch.solver import multi_window as mw
+
+    cs = _chip_smoke()
+    cfg = cs.make_config("config1")
+
+    def sweep(eps=0.0, seed=0):
+        eng, _, _ = cs.run_config(cfg, "cpu", run_local=False)
+        dm = eng.device_master
+        _nudge((dm.pose, dm.lm), eps, np.random.default_rng(seed))
+        eng.refine_map(sweeps=cs.REFINE_SWEEPS)
+        return eng.eval_overall_squared_error()
+
+    e0 = sweep()
+    errs = [sweep(eps, seed) for eps in (1e-7, 1e-6) for seed in range(15)]
+    make = mw.make_sweep_step
+
+    def half_dropped(c):
+        step = make(c)
+
+        def dropping(pose, prior, lm, ints, obs_z, wh, spi, calib, E, L, N):
+            ints = ints.copy()
+            half = ints.shape[0] // 2
+            ints[half:, E: 2 * E] = 0                       # edge_opt
+            ints[half:, 2 * E + L: 2 * E + 2 * L] = 0       # lm_opt
+            return step(pose, prior, lm, ints, obs_z, wh, spi, calib, E, L,
+                        N)
+        return dropping
+
+    monkeypatch.setattr(mw, "make_sweep_step", half_dropped)
+    e_fault = sweep()
+    rel = [abs(e - e0) / e0 for e in errs]
+    print(f"\n[refine_map spread] unperturbed {e0:.2f}; 30 nudged runs "
+          f"{min(errs):.2f} .. {max(errs):.2f} (widest gap "
+          f"{(max(errs) - min(errs)) / e0:.3e}, largest from the "
+          f"unperturbed {max(rel):.3e}); half the windows dropped "
+          f"{e_fault:.2f} ({abs(e_fault - e0) / e0:.3e})")
+    assert max(rel) < cs.RING_REFINE_RTOL
+    assert abs(e_fault - e0) / e0 > cs.RING_REFINE_RTOL

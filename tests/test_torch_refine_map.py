@@ -220,11 +220,26 @@ def test_sweep_then_incremental_continues():
 
 
 def test_mesh_paths_raise_by_name():
-    eng = T.SrbaEngine("RangeBearing2D", device="cpu")
-    with pytest.raises(NotImplementedError, match="make_sweep_step_mesh"):
-        eng.refine_map(mesh=object())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tmw.make_sweep_step_mesh(eng._solver_cfg, object())
+    """The mesh sweep is ported: on a one-rank gloo mesh
+    ``make_sweep_step_mesh`` and ``refine_map(mesh=...)`` give bitwise the
+    one-device sweep (the deltas go through zeroed fields and an
+    all-reduce, each master row one delta and exact zeros); a mesh on
+    another device than the masters' is refused by name."""
+    from tests.test_torch_sharding import one_rank_mesh
+
+    mesh = one_rank_mesh()
+    a, b = (_port(num_kfs=12, run_local=False)[0] for _ in range(2))
+    assert callable(tmw.make_sweep_step_mesh(a._solver_cfg, mesh))
+    ia, ib = a.refine_map(stride=3, mesh=mesh), b.refine_map(stride=3)
+    assert ia == ib and ia["windows"] > 0
+    assert torch.equal(a.device_master.pose, b.device_master.pose)
+    assert torch.equal(a.device_master.lm, b.device_master.lm)
+
+    class CudaMesh:
+        device_type = "cuda"
+
+    with pytest.raises((ValueError, RuntimeError), match="cuda|CUDA"):
+        a.refine_map(mesh=CudaMesh())
 
 
 @pytest.mark.parametrize("ecp", ["classic", "grid", "var1"])
