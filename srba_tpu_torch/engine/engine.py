@@ -63,7 +63,7 @@ from srba_tpu_torch.solver.lm import SolverConfig, WindowBatch, get_solver
 from srba_tpu_torch.solver.master import INFO_KEYS
 from srba_tpu_torch.solver.window import build_window, write_back
 from srba_tpu_torch.utils.device import resolve_device
-from srba_tpu_torch.utils.profiler import Profiler
+from srba_tpu_torch.utils.profiler import Profiler, span
 from srba_tpu_torch.utils.registry import lookup
 
 
@@ -924,12 +924,18 @@ class SrbaEngine:
         padded with windows that own nothing to a multiple of the mesh
         size), every rank holding the same masters on the mesh's device.
         Returns ``{"windows": ...}`` and the last phase's aggregated info
-        (summed errors and observations, largest iterations and lambda)."""
-        from srba_tpu_torch.solver.master import pack_window_ints
-        from srba_tpu_torch.solver.multi_window import (make_sweep_step,
-                                                        make_sweep_step_mesh,
-                                                        plan_sweep_roots)
+        (summed errors and observations, largest iterations and lambda).
 
+        Under a trace the call is the span ``srba.refine_map``; the profiler
+        scopes ``refine_map_windows`` (root plan and window build),
+        ``refine_map_pack`` (bucket shape, padding, packing) and
+        ``refine_map_phase`` (the batched solve's enqueue) run once a
+        non-empty phase, ``refine_map_info`` once at the info read.  The
+        counters ``refine_obs_rows`` / ``refine_obs_slots`` (real
+        observation rows against the padded rows the batch runs over) and
+        ``refine_window_trips`` / ``refine_window_trip_slots`` (LM trips the
+        windows ran before they stopped against the trips the batch ran)
+        are summed over the phases."""
         dm = self.device_master
         if dm is None:
             raise ValueError("refine_map requires the device-master engine "
@@ -938,6 +944,16 @@ class SrbaEngine:
             if mesh_device(mesh) != self.device:
                 raise ValueError(f"a mesh on {mesh_device(mesh)} for masters "
                                  f"on {self.device}")
+        with span("refine_map"):
+            return self._refine_map(sweeps, stride, depth, mesh, prior_scale)
+
+    def _refine_map(self, sweeps, stride, depth, mesh, prior_scale):
+        from srba_tpu_torch.solver.master import pack_window_ints
+        from srba_tpu_torch.solver.multi_window import (make_sweep_step,
+                                                        make_sweep_step_mesh,
+                                                        plan_sweep_roots)
+
+        dm, prof = self.device_master, self.profiler
         self.flush_pending_closures()
         dm.flush_append()
         tree_depth = self.parameters.max_tree_depth
@@ -953,6 +969,8 @@ class SrbaEngine:
             prior_in[:, self.group.dim] *= float(prior_scale)
         info_out: Dict[str, float] = {"windows": 0.0}
         dev_info = None
+        # Each phase's LM trips (a 0-dim device tensor), read with the info.
+        trips = []
 
         if stride is None:
             stride = getattr(self.ecp, "submap_size", None) \
@@ -964,54 +982,66 @@ class SrbaEngine:
             # within a sweep, red-black phases keep adjacent windows from
             # updating simultaneously (each phase's windows are far apart,
             # neighbors update one after the other).
-            offset = ((si // 2) % 2) * (stride // 2)
-            all_roots = plan_sweep_roots(self, stride, offset=offset)
-            roots = [all_roots[0::2], all_roots[1::2]][si % 2]
-            wins = self._sweep_windows(roots, depth, tree_depth)
+            with prof.scope("refine_map_windows"):
+                offset = ((si // 2) % 2) * (stride // 2)
+                all_roots = plan_sweep_roots(self, stride, offset=offset)
+                roots = [all_roots[0::2], all_roots[1::2]][si % 2]
+                wins = self._sweep_windows(roots, depth, tree_depth)
             if not wins:
                 continue  # this parity phase is empty; others may not be
 
-            # Common bucket shape + stacking.
-            E = max(a.edge_gids.shape[0] for a, _, _ in wins)
-            L = max(a.lm_gids.shape[0] for a, _, _ in wins)
-            N = max(a.obs_z.shape[0] for a, _, _ in wins)
-            W = len(wins)
-            if mesh is not None:
-                W = -(-W // mesh.size()) * mesh.size()
-            T = 2 * E + 2 * L + 2 * N + 2 * N * tree_depth
-            ints = np.zeros((W, T), np.int32)
-            obs_z = np.zeros((W, N, self.state.z_dim), np.float32)
+            with prof.scope("refine_map_pack"):
+                # Common bucket shape + stacking.
+                E = max(a.edge_gids.shape[0] for a, _, _ in wins)
+                L = max(a.lm_gids.shape[0] for a, _, _ in wins)
+                N = max(a.obs_z.shape[0] for a, _, _ in wins)
+                W = len(wins)
+                if mesh is not None:
+                    W = -(-W // mesh.size()) * mesh.size()
+                T = 2 * E + 2 * L + 2 * N + 2 * N * tree_depth
+                ints = np.zeros((W, T), np.int32)
+                obs_z = np.zeros((W, N, self.state.z_dim), np.float32)
 
-            def pad_to(a, n):
-                out = np.zeros((n,) + a.shape[1:], a.dtype)
-                out[: a.shape[0]] = a
-                return out
+                def pad_to(a, n):
+                    out = np.zeros((n,) + a.shape[1:], a.dtype)
+                    out[: a.shape[0]] = a
+                    return out
 
-            for wi, (a, e_own, l_own) in enumerate(wins):
-                ints[wi] = pack_window_ints(
-                    pad_to(a.edge_gids, E), pad_to(e_own, E),
-                    pad_to(a.lm_gids, L), pad_to(l_own, L),
-                    pad_to(a.obs_lm, N), pad_to(a.obs_valid, N),
-                    pad_to(a.path_edge, N), pad_to(a.path_sign, N))
-                obs_z[wi, : a.obs_z.shape[0]] = a.obs_z
-                if a.obs_z.shape[0] < N:   # valid-valued padding rows
-                    obs_z[wi, a.obs_z.shape[0]:] = a.obs_z[0]
-            # Padding windows (mesh divisibility): all-zero ints, so no
-            # ownership and no valid observation; window 0's measurements
-            # keep their rows non-degenerate.
-            obs_z[len(wins):] = obs_z[0]
-            with self.profiler.scope("refine_map_phase"):
+                for wi, (a, e_own, l_own) in enumerate(wins):
+                    ints[wi] = pack_window_ints(
+                        pad_to(a.edge_gids, E), pad_to(e_own, E),
+                        pad_to(a.lm_gids, L), pad_to(l_own, L),
+                        pad_to(a.obs_lm, N), pad_to(a.obs_valid, N),
+                        pad_to(a.path_edge, N), pad_to(a.path_sign, N))
+                    obs_z[wi, : a.obs_z.shape[0]] = a.obs_z
+                    if a.obs_z.shape[0] < N:   # valid-valued padding rows
+                        obs_z[wi, a.obs_z.shape[0]:] = a.obs_z[0]
+                # Padding windows (mesh divisibility): all-zero ints, so no
+                # ownership and no valid observation; window 0's
+                # measurements keep their rows non-degenerate.
+                obs_z[len(wins):] = obs_z[0]
+            with prof.scope("refine_map_phase"):
                 dm.pose, dm.lm, dev_info = step(
                     dm.pose, prior_in, dm.lm, ints, obs_z, dm._whitener_dev,
                     dm._spinv_dev, dm._calib_dev, E, L, N)
+            trips.append(dev_info["trips"])
+            # The rows the one-hot products run over and the LM trips the
+            # batch runs, against the real ones (trips: after the read).
+            prof.count("refine_obs_rows", sum(
+                int(np.count_nonzero(a.obs_valid)) for a, _, _ in wins))
+            prof.count("refine_obs_slots", len(wins) * N)
+            prof.count("refine_window_trip_slots",
+                       len(wins) * self._solver_cfg.max_iters)
             dm.dirty = True
             info_out["windows"] += float(len(wins))
         self._seed_cache = None   # the sweep moved poses wholesale
         self._closure_barrier_seq = dm.step_seq
         if dev_info is not None:
-            vals = torch.stack([dev_info[k].to(torch.float32)
-                                for k in INFO_KEYS]).cpu().tolist()
+            with prof.scope("refine_map_info"):
+                vals = torch.stack([dev_info[k].to(torch.float32)
+                                    for k in INFO_KEYS] + trips).cpu().tolist()
             info_out.update(zip(INFO_KEYS, vals))
+            prof.count("refine_window_trips", int(sum(vals[len(INFO_KEYS):])))
         return info_out
 
     def _build_window(self, root: int, depth: int, tree_depth: int):

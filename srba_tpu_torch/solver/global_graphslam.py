@@ -56,6 +56,7 @@ from srba_tpu_torch.parallel.sharding import mesh_device, shard_rows
 from srba_tpu_torch.solver.pgo_ops import EdgeIncidence, HostReads, pcg
 from srba_tpu_torch.utils.collectives import axis_group, psum
 from srba_tpu_torch.utils.device import resolve_device
+from srba_tpu_torch.utils.profiler import tracing
 
 
 @dataclass(frozen=True)
@@ -132,13 +133,16 @@ def _make_residual_jacobians(group):
 def _scope(profiler, name: str, device: torch.device):
     """A profiler scope that waits for the device before it closes, so the
     host clock attributes device time to the scope that queued it.  Only a
-    solve given a profiler pays for those waits."""
+    solve given a profiler pays for those waits, and not under a trace:
+    there the scope is a span ``srba.<name>`` and the trace gives the
+    device time of the kernels it launched, so the solve runs as it would
+    untraced."""
     if profiler is None or not profiler.enabled:
         yield
         return
     with profiler.scope(name):
         yield
-        if device.type == "cuda":
+        if device.type == "cuda" and not tracing():
             torch.cuda.synchronize(device)
 
 
@@ -379,8 +383,9 @@ def optimize_global_pose_graph(problem: dict,
     converged.  ``profiler`` (a :class:`~srba_tpu_torch.utils.profiler.
     Profiler`) records the scopes ``pgo_chordal``, ``pgo_linearize``,
     ``pgo_cg`` and ``pgo_eval`` (each waits for the device before it
-    closes), the counters ``pgo_solves`` and ``pgo_host_syncs``, and
-    ``pgo_incidence_width``, the width of the incidence table.  With
+    closes, but not under a trace), the counters ``pgo_solves`` and
+    ``pgo_host_syncs``, and ``pgo_incidence_width``, the width of the
+    incidence table.  With
     ``mesh`` the edges are split over its ranks (:func:`make_pgo_spmd`,
     escalations too; the edge bucket padded to a multiple of the mesh
     size), on the mesh's device, which must be of ``device``'s type."""

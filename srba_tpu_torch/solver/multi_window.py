@@ -48,6 +48,7 @@ from __future__ import annotations
 import functools
 from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -60,6 +61,7 @@ from srba_tpu_torch.solver.lm import (SolverConfig, WindowBatch, _resolve,
                                       segment_sum)
 from srba_tpu_torch.solver.master import _to_device
 from srba_tpu_torch.utils.collectives import all_reduce_packed
+from srba_tpu_torch.utils.profiler import span
 
 SWEEP_AXIS = "win"
 
@@ -260,8 +262,10 @@ def make_batched_solver(cfg: SolverConfig):
         lam, rej, done, it = lm_state(cfg, (W,), dt, dev)
         plans = _segment_plans(b) if it_cap > 0 else None
         for _ in range(it_cap):
-            neqs = _build_normal_eqs(edge, lm, b, fb, plans)
-            dp, df = _solve_delta(*neqs, lam, b)
+            with span("lm.normal_eqs"):
+                neqs = _build_normal_eqs(edge, lm, b, fb, plans)
+            with span("lm.solve_delta"):
+                dp, df = _solve_delta(*neqs, lam, b)
             cand_e = group.retract(edge, dp)
             cand_l = lmt.retract(lm, df)
             err_new = _errors(cand_e, cand_l, b, fb)
@@ -284,15 +288,20 @@ def make_batched_solver(cfg: SolverConfig):
     return solve, eval_error
 
 
-def _agg_info(info):
+def _agg_info(info, real=None):
     """One sweep phase's info: sums of errors and observations, maxima of
-    iterations and lambda (the JAX package's aggregation)."""
+    iterations and lambda (the JAX package's aggregation), and ``trips``,
+    the LM trips the windows ran before they stopped, summed over the real
+    windows (``real`` [W], None: all of them) in float32 (exact: far under
+    2**24)."""
+    iters = info["iters"] if real is None else info["iters"] * real
     return {
         "err_init": torch.sum(info["err_init"]),
         "err_final": torch.sum(info["err_final"]),
         "iters": torch.max(info["iters"]),
         "lam": torch.max(info["lam"]),
         "num_obs": torch.sum(info["num_obs"]),
+        "trips": torch.sum(iters, dtype=torch.float32),
     }
 
 
@@ -349,7 +358,8 @@ def make_sweep_step(cfg: SolverConfig):
     :func:`~srba_tpu_torch.solver.master.pack_window_ints` buffer (its opt
     masks are the ownership masks) and its observations; each is uploaded
     once.  The masters are updated in place (returned for symmetry with the
-    JAX package's donated ones); ``info`` holds 0-dim device tensors."""
+    JAX package's donated ones); ``info`` holds 0-dim device tensors: the
+    aggregated single-window keys and ``trips`` (see :func:`_agg_info`)."""
     solve_windows = _make_solve_windows(cfg)
 
     def step(pose_master, prior_master, lm_master, ints, obs_z,
@@ -390,8 +400,12 @@ def make_sweep_step_mesh(cfg: SolverConfig, mesh):
             0, edge_ids.reshape(-1), dp.reshape(-1, pose_master.shape[1]))
         dlm = torch.zeros_like(lm_master).index_add_(
             0, lm_ids.reshape(-1), dl.reshape(-1, lm_master.shape[1]))
-        agg = _agg_info(info)
-        sums = ("err_init", "err_final", "num_obs")
+        # Padding windows (all-zero rows) run LM trips too; they are not
+        # counted.
+        real = _to_device(torch.as_tensor(np.any(ints[rows], axis=1)),
+                          pose_master.device)
+        agg = _agg_info(info, real)
+        sums = ("err_init", "err_final", "num_obs", "trips")
         dpose, dlm, *summed = all_reduce_packed(
             (dpose, dlm) + tuple(agg[k] for k in sums), group)
         # The maxima as the per-window aggregation takes them.

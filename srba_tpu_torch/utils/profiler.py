@@ -1,16 +1,34 @@
-"""Hierarchical wall-clock profiler (a copy of
-:mod:`srba_tpu.utils.profiler`) — analog of the reference's
-``mrpt::utils::CTimeLogger`` member (``m_profiler``) wrapping every pipeline
-stage, with the mean/min/max dump table of ``srba-slam --profile-stats``
-(SURVEY.md §6, Tracing/profiling)."""
+"""Hierarchical wall-clock profiler (after :mod:`srba_tpu.utils.profiler`) —
+analog of the reference's ``mrpt::utils::CTimeLogger`` member
+(``m_profiler``) wrapping every pipeline stage, with the mean/min/max dump
+table of ``srba-slam --profile-stats`` (SURVEY.md §6, Tracing/profiling).
+
+While a ``torch.profiler`` trace records, every scope is also a span of
+that trace, ``srba.<key>`` (a ``record_function``), so the trace can put
+its device time and idle gaps down to the port's layers; :func:`span` gives
+code that holds no :class:`Profiler` the same spans.  Outside a trace the
+cost is one flag check per scope.  What the scopes and counters record
+while a trace is on is also summed into :data:`TRACED`, for a reader of
+the trace to set host times and counts beside its device times.
+"""
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import defaultdict
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, List
+
+import torch
+from torch.profiler import record_function
+
+SPAN_PREFIX = "srba."
+
+# True while a torch.profiler (or autograd profiler) trace is recording.
+tracing = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
 
 
 @dataclass
@@ -27,6 +45,13 @@ class _Stat:
         self.t_max = max(self.t_max, dt)
 
 
+def span(name: str):
+    """A span ``srba.<name>`` of the trace that is recording, if one is;
+    no host stats.  For code with no :class:`Profiler` at hand (the
+    solvers, cached per configuration)."""
+    return record_function(SPAN_PREFIX + name) if tracing() else _NO_SPAN
+
+
 class Profiler:
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
@@ -38,6 +63,8 @@ class Profiler:
     def count(self, name: str, n: int = 1) -> None:
         if self.enabled:
             self.counters[name] += n
+            if tracing():
+                TRACED.counters[name] += n
 
     @contextmanager
     def scope(self, name: str):
@@ -46,12 +73,17 @@ class Profiler:
             return
         self._stack.append(name)
         key = ".".join(self._stack)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.stats[key].add(time.perf_counter() - t0)
-            self._stack.pop()
+        traced = tracing()
+        with record_function(SPAN_PREFIX + key) if traced else _NO_SPAN:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                dt = time.perf_counter() - t0
+                self.stats[key].add(dt)
+                if traced:
+                    TRACED.stats[key].add(dt)
+                self._stack.pop()
 
     def report(self) -> str:
         """Mean/min/max table like the reference profiler dump."""
@@ -70,3 +102,9 @@ class Profiler:
     def mean(self, key: str) -> float:
         s = self.stats.get(key)
         return s.total / s.count if s and s.count else 0.0
+
+
+# The host stats and counters that every enabled Profiler of the process
+# recorded while a trace was on: the traced stretch's own numbers, with no
+# handle on the engine that made them and no snapshot before the trace.
+TRACED = Profiler()
