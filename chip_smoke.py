@@ -98,8 +98,9 @@ Phases (any failure raises and the script exits non-zero):
    red-black phase in one batched solve, the kernel once per LM iteration
    on all their landmark blocks ``[W*L, l, l]``) on configs #1 and #2 built
    from raw odometry, on the card and on the CPU from the same state: the
-   error below half the start, card and CPU within rel 1e-3, a bitwise
-   rerun, windows and buckets per phase, launches by shape, time per
+   error below half the start, each phase's solve on the card from the
+   CPU's masters within rel 1e-3 of the CPU's (``refine_lockstep``), a
+   bitwise rerun, windows and shapes per phase, launches by shape, time per
    sweep, the kernel held to its plain version on the sweeps' own stacks
    and timed at their shapes; then ``refine_map(sweeps=2)`` on phase 5's
    optimized map (error at most 1.05 times before) and one more keyframe;
@@ -245,9 +246,15 @@ HOST_ERR_RTOL, HOST_ATE_RTOL, HOST_ATE_ATOL = 2e-3, 1e-2, 1e-4
 VARIANT_ERR_RTOL = 1e-3
 VARIANT_TIMED_CALLS = 3
 # Phase 18 (tests/test_refine_map.py): three sweeps bring the raw-odometry
-# map's error below half its start; card and CPU agree at rel 1e-3 (the
-# JAX package's mesh-vs-single sweep tolerance); two sweeps on an
-# optimized map leave its error at most 1.05 times what it was.
+# map's error below half its start; each phase's batched solve, started on
+# the card and on the CPU from the same masters, ends at the same error
+# (rel 1e-3, the JAX package's mesh-vs-single sweep tolerance) from the
+# same initial error (rel STEP_ERR_INIT_RTOL); two sweeps on an optimized
+# map leave its error at most 1.05 times what it was.  The free-running
+# sweeps' gap is printed, not held: a window's capped LM run decides
+# accept and stop on near-ties, so a rounding of the card's GEMMs (which
+# change with the phase's shape) takes six phases in a row apart along
+# near-flat directions (PERF.md §6, PR 16).
 REFINE_SWEEPS, REFINE_GAIN, REFINE_CPU_RTOL = 3, 0.5, 1e-3
 REFINE_STABLE_SWEEPS, REFINE_STABLE = 2, 1.05
 # Phase 19 (tests/test_ecps.py::TestLocalAreasVar1, its two-revolution
@@ -1551,7 +1558,7 @@ def phase_solver_variants(eng2, card: str, bl):
 
 @contextmanager
 def sweep_records(keep_stacks: bool = False):
-    """Records each refine_map sweep phase's windows and common bucket
+    """Records each refine_map sweep phase's windows and common shape
     (W, E, L, N) and, with ``keep_stacks``, a copy of every stack the
     batched solve hands ``spd_inverse`` (which still runs the kernel and
     counts)."""
@@ -1580,6 +1587,47 @@ def sweep_records(keep_stacks: bool = False):
     finally:
         mw.make_sweep_step, mw.make_sweep_step_mesh, mw.spd_inverse = \
             make, make_mesh, inverse
+
+
+def refine_lockstep(eng_c, sweeps: int, **kw) -> list:
+    """``eng_c.refine_map(sweeps, **kw)`` on a CPU engine, each phase's
+    batched solve also run on the card from the same masters and windows
+    (uploaded before the CPU's step moves them); the CPU's result goes on.
+    Returns a row a phase: ``((W, E, L, N), err_init, err_final)``, each
+    error a pair (card, CPU), and the largest |master difference| after
+    the two steps."""
+    from srba_tpu_torch.solver import multi_window as mw
+    make, rows = mw.make_sweep_step, []
+
+    def lockstep(cfg):
+        step = make(cfg)
+
+        def both(pose, prior, lm, ints, obs_z, whitener, spinv, calib, E, L,
+                 N):
+            pg, lg, ig = step(*(t.to("cuda") for t in (pose, prior, lm)),
+                              ints, obs_z, whitener.to("cuda"),
+                              spinv.to("cuda"), calib, E, L, N)
+            pc, lc, ic = step(pose, prior, lm, ints, obs_z, whitener, spinv,
+                              calib, E, L, N)
+            rows.append(((ints.shape[0], E, L, N),
+                         *((float(ig[k]), float(ic[k]))
+                           for k in ("err_init", "err_final")),
+                         max(float((pg.cpu() - pc).abs().max()),
+                             float((lg.cpu() - lc).abs().max()))))
+            return pc, lc, ic
+        return both
+
+    mw.make_sweep_step = lockstep
+    try:
+        eng_c.refine_map(sweeps=sweeps, **kw)
+    finally:
+        mw.make_sweep_step = make
+    return rows
+
+
+def rel_diff(pair) -> float:
+    """|card - CPU| / |CPU| of a ``(card, CPU)`` pair."""
+    return abs(pair[0] - pair[1]) / abs(pair[1])
 
 
 def phase_refine_map(name: str, card: str, bl, timer, times):
@@ -1620,13 +1668,29 @@ def phase_refine_map(name: str, card: str, bl, timer, times):
           f"[18] {name}: kernel shapes {by_shape}, expected [W*L, {d}, {d}] "
           "once per LM iteration of each phase")
     t0 = time.perf_counter()
-    eng_c.refine_map(sweeps=REFINE_SWEEPS)
+    rows = refine_lockstep(eng_c, REFINE_SWEEPS)
     err_c = eng_c.eval_overall_squared_error()
+    init = [rel_diff(r[1]) for r in rows]
+    final = [rel_diff(r[2]) for r in rows]
     log(f"[18] {name} the same sweeps on the CPU from the same state "
-        f"({time.perf_counter() - t0:.1f} s): error {err_c:.6e}, rel diff "
-        f"{abs(err1 - err_c) / err_c:.3e} (rtol {REFINE_CPU_RTOL})")
-    check(within(err1, err_c, REFINE_CPU_RTOL),
-          f"[18] {name}: card and CPU sweeps disagree")
+        f"({time.perf_counter() - t0:.1f} s): error {err_c:.6e}, free-"
+        f"running rel diff from the card's {abs(err1 - err_c) / err_c:.3e} "
+        f"(printed, not held)")
+    log(f"[18] {name} lockstep, each phase's solve from the CPU's masters "
+        f"on the card: rel diff err_init " + ", ".join(
+            f"{x:.2e}" for x in init) + f" (rtol {STEP_ERR_INIT_RTOL}); "
+        f"err_final " + ", ".join(f"{x:.2e}" for x in final) + f" (rtol "
+        f"{REFINE_CPU_RTOL}); max|master diff| after each step " + ", ".join(
+            f"{r[3]:.2e}" for r in rows))
+    check([r[0] for r in rows] == phases,
+          f"[18] {name}: the CPU's phases {[r[0] for r in rows]} are not "
+          f"the card's {phases}")
+    check(max(init) < STEP_ERR_INIT_RTOL,
+          f"[18] {name}: a phase's solve on the card starts at another "
+          "error than the CPU's from the same masters")
+    check(max(final) < REFINE_CPU_RTOL,
+          f"[18] {name}: a phase's solve on the card ends at another error "
+          "than the CPU's from the same masters")
     eng_r, _, _ = run_config(cfg, "cuda", run_local=False)
     with sweep_records(keep_stacks=True) as (_, stacks):
         eng_r.refine_map(sweeps=REFINE_SWEEPS)

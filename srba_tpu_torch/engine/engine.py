@@ -928,11 +928,15 @@ class SrbaEngine:
 
         Under a trace the call is the span ``srba.refine_map``; the profiler
         scopes ``refine_map_windows`` (root plan and window build),
-        ``refine_map_pack`` (bucket shape, padding, packing) and
+        ``refine_map_pack`` (the phase's shape, padding, packing) and
         ``refine_map_phase`` (the batched solve's enqueue) run once a
-        non-empty phase, ``refine_map_info`` once at the info read.  The
-        counters ``refine_obs_rows`` / ``refine_obs_slots`` (real
-        observation rows against the padded rows the batch runs over) and
+        non-empty phase, ``refine_map_info`` once at the info read.  A
+        phase's windows are packed to one shape (E, L, N): the largest
+        real edge, landmark and observation counts among them, each
+        rounded up to a multiple of 8, not the keyframe path's bucket
+        ladder.  The counters ``refine_obs_rows`` / ``refine_obs_slots``
+        and ``refine_edge_rows`` / ``refine_edge_slots`` (real observation
+        rows and edges against the padded ones the batch runs over) and
         ``refine_window_trips`` / ``refine_window_trip_slots`` (LM trips the
         windows ran before they stopped against the trips the batch ran)
         are summed over the phases."""
@@ -991,10 +995,12 @@ class SrbaEngine:
                 continue  # this parity phase is empty; others may not be
 
             with prof.scope("refine_map_pack"):
-                # Common bucket shape + stacking.
-                E = max(a.edge_gids.shape[0] for a, _, _ in wins)
-                L = max(a.lm_gids.shape[0] for a, _, _ in wins)
-                N = max(a.obs_z.shape[0] for a, _, _ in wins)
+                # The phase's shape: its windows' largest real counts, each
+                # rounded up to a multiple of 8 (P = 6E stays a multiple of
+                # 16 floats for the GEMMs' vector loads).  Each window's
+                # bucket-padded arrays are padded or cut to it.
+                E, L, N = (-(-max(c[i] for *_, c in wins) // 8) * 8
+                           for i in range(3))
                 W = len(wins)
                 if mesh is not None:
                     W = -(-W // mesh.size()) * mesh.size()
@@ -1003,19 +1009,27 @@ class SrbaEngine:
                 obs_z = np.zeros((W, N, self.state.z_dim), np.float32)
 
                 def pad_to(a, n):
+                    # A cut drops padding alone: zero ids, masks, rows
+                    # and path entries.
+                    if a[n:].any():
+                        raise ValueError(f"refine_map: cutting a window's "
+                                         f"{a.shape} to {n} would drop a "
+                                         f"real slot")
                     out = np.zeros((n,) + a.shape[1:], a.dtype)
-                    out[: a.shape[0]] = a
+                    m = min(n, a.shape[0])
+                    out[:m] = a[:m]
                     return out
 
-                for wi, (a, e_own, l_own) in enumerate(wins):
+                for wi, (a, e_own, l_own, _) in enumerate(wins):
                     ints[wi] = pack_window_ints(
                         pad_to(a.edge_gids, E), pad_to(e_own, E),
                         pad_to(a.lm_gids, L), pad_to(l_own, L),
                         pad_to(a.obs_lm, N), pad_to(a.obs_valid, N),
                         pad_to(a.path_edge, N), pad_to(a.path_sign, N))
-                    obs_z[wi, : a.obs_z.shape[0]] = a.obs_z
-                    if a.obs_z.shape[0] < N:   # valid-valued padding rows
-                        obs_z[wi, a.obs_z.shape[0]:] = a.obs_z[0]
+                    n = min(N, a.obs_z.shape[0])
+                    obs_z[wi, :n] = a.obs_z[:n]
+                    if n < N:   # valid-valued padding rows
+                        obs_z[wi, n:] = a.obs_z[0]
                 # Padding windows (mesh divisibility): all-zero ints, so no
                 # ownership and no valid observation; window 0's
                 # measurements keep their rows non-degenerate.
@@ -1027,9 +1041,10 @@ class SrbaEngine:
             trips.append(dev_info["trips"])
             # The rows the one-hot products run over and the LM trips the
             # batch runs, against the real ones (trips: after the read).
-            prof.count("refine_obs_rows", sum(
-                int(np.count_nonzero(a.obs_valid)) for a, _, _ in wins))
+            prof.count("refine_obs_rows", sum(c[2] for *_, c in wins))
             prof.count("refine_obs_slots", len(wins) * N)
+            prof.count("refine_edge_rows", sum(c[0] for *_, c in wins))
+            prof.count("refine_edge_slots", len(wins) * E)
             prof.count("refine_window_trip_slots",
                        len(wins) * self._solver_cfg.max_iters)
             dm.dirty = True
@@ -1070,8 +1085,10 @@ class SrbaEngine:
         """The windows of one sweep phase with their ownership: each
         window's opt masks cleared on unknowns an earlier root of the phase
         claimed (first claim wins).  Returns ``[(arrays, edge_own [E],
-        lm_own [L])]`` (f32 masks); windows that own nothing are left
-        out."""
+        lm_own [L], (E_real, L_real, N_real))]`` (f32 masks over the
+        bucket-padded slots; the window's real edge, landmark and
+        observation counts, which lead its slots); windows that own
+        nothing are left out."""
         wins = []
         claimed_e: set = set()
         claimed_l: set = set()
@@ -1079,7 +1096,7 @@ class SrbaEngine:
             built = self._build_window(root, depth, tree_depth)
             if built is None:
                 continue
-            arrays, _ = built
+            arrays, plan = built
             e_claimed = np.isin(
                 arrays.edge_gids,
                 np.fromiter(claimed_e, np.int32, len(claimed_e)))
@@ -1093,7 +1110,9 @@ class SrbaEngine:
             claimed_e.update(arrays.edge_gids[e_own].tolist())
             claimed_l.update(arrays.lm_gids[l_own].tolist())
             wins.append((arrays, e_own.astype(np.float32),
-                         l_own.astype(np.float32)))
+                         l_own.astype(np.float32),
+                         (len(plan.edge_ids), len(plan.lm_ids),
+                          plan.num_obs)))
         return wins
 
     # ------------------------------------------------------------------

@@ -26,10 +26,10 @@ from srba_tpu_torch.graph.spantree import KeyframeGraph
 
 
 # Bucket floors, unchanged from the JAX package (whose jit compiles one
-# program per distinct (E, L, N)): the port keeps the same ladder so both
-# packages solve identically padded windows and the parity tests compare
-# like with like.  Whether the ladder is right for the GPU is an open
-# question (PERF.md).
+# program per distinct (E, L, N)): the keyframe path keeps the same ladder
+# so both packages solve identically padded windows and the parity tests
+# compare like with like.  The map sweep (``SrbaEngine.refine_map``) packs
+# each phase to its windows' real sizes instead.
 E_MIN, L_MIN, N_MIN = 8, 64, 64
 
 

@@ -14,6 +14,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import srba_tpu_torch as T
+from srba_tpu_torch.engine.engine import SrbaEngine
 from srba_tpu_torch.models.noise import NoiseIdentity
 from srba_tpu_torch.solver import global_graphslam as gg
 from srba_tpu_torch.solver import multi_window as mw
@@ -141,6 +142,14 @@ def _engine():
     return eng
 
 
+def _real_edges(a):
+    """A window's real edges from its bucket-padded arrays: the optimized
+    ones lead, then the fixed ones that a valid row's path goes through."""
+    valid = a.obs_valid > 0
+    return max(int(np.count_nonzero(a.edge_opt)),
+               int(a.path_edge[valid].max()) + 1)
+
+
 @pytest.fixture(scope="module")
 def refined():
     """The same map refined by one sweep without a trace and with one, each
@@ -155,16 +164,42 @@ def refined():
         return agg(info, real)
 
     mp.setattr(mw, "_agg_info", spy)
+    # Each phase's shape (E, L, N) as the step gets it, and its windows'
+    # real edges, from the windows' padded arrays.
+    shapes, edges = [], []
+    make = mw.make_sweep_step
+
+    def recording(cfg):
+        step = make(cfg)
+
+        def rec(*args):
+            shapes.append(tuple(args[8:11]))
+            return step(*args)
+        return rec
+
+    sweep = SrbaEngine._sweep_windows
+
+    def sweep_windows(self, *args):
+        wins = sweep(self, *args)
+        if wins:
+            edges.append([_real_edges(a) for a, *_ in wins])
+        return wins
+
+    mp.setattr(mw, "make_sweep_step", recording)
+    mp.setattr(SrbaEngine, "_sweep_windows", sweep_windows)
     try:
         out = {}
         for traced in (False, True):
             eng = _engine()
             seen.clear()
+            shapes.clear()
+            edges.clear()
             snap = _traced_snapshot()
             with _trace() if traced else contextlib.nullcontext() as p:
                 info = eng.refine_map(sweeps=SWEEPS, stride=STRIDE)
             out[traced] = dict(
-                eng=eng, info=info, phases=list(seen),
+                eng=eng, info=info, phases=list(seen), shapes=list(shapes),
+                edges=list(edges),
                 names=_span_names(p) if traced else None,
                 traced_before=snap, traced_after=_traced_snapshot())
     finally:
@@ -221,6 +256,14 @@ def test_refine_map_counters(refined, traced):
         windows * r["eng"]._solver_cfg.max_iters
     assert c["refine_obs_rows"] == rows
     assert 0 < c["refine_obs_rows"] <= c["refine_obs_slots"]
+    shapes, edges = r["shapes"], r["edges"]
+    assert len(shapes) == len(edges) == len(r["phases"])
+    assert c["refine_edge_slots"] == sum(
+        it.shape[0] * E for (it, _), (E, _, _) in zip(r["phases"], shapes))
+    assert c["refine_edge_rows"] == sum(map(sum, edges))
+    assert 0 < c["refine_edge_rows"] <= c["refine_edge_slots"]
+    for (E, _, _), real in zip(shapes, edges):  # the phase's real maximum
+        assert E % 8 == 0 and E - 8 < max(real) <= E, (E, real)
     assert r["info"]["windows"] == windows
 
 

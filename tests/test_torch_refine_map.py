@@ -157,14 +157,73 @@ def test_refine_map_leaves_priors_and_raises_barrier(odo_maps):
     assert teng._closure_barrier_seq == dm.step_seq
 
 
+SEGMENTS = ("edge_gids", "edge_own", "lm_gids", "lm_own", "obs_lm",
+            "obs_valid", "path_edge", "path_sign")
+
+
+def _segments(ints, E, L, N, D=4):
+    """A packed ``ints [W, T]`` split into its named segments, the path
+    ones as ``[W, N, D]``."""
+    cols = np.cumsum([E, E, L, L, N, N, N * D])
+    segs = dict(zip(SEGMENTS, np.split(ints, cols, axis=1)))
+    for k in ("path_edge", "path_sign"):
+        segs[k] = segs[k].reshape(len(ints), N, D)
+    return segs
+
+
+def _real_counts(segs):
+    """Each window's real (edges, landmarks, rows) from its packed
+    segments: rows are the valid ones; landmarks are indexed by them in
+    order; edges run to the last slot with an id, an owner or a path
+    through it (only edge 0 has id 0, and it leads its window)."""
+    out = []
+    for w in range(len(segs["obs_valid"])):
+        valid = segs["obs_valid"][w] > 0
+        used = np.flatnonzero(segs["edge_gids"][w] | segs["edge_own"][w])
+        e = max(used.max(initial=-1), segs["path_edge"][w][valid].max()) + 1
+        out.append((e, segs["obs_lm"][w][valid].max() + 1, valid.sum()))
+    return np.array(out)
+
+
+def _repad(ints, obs_z, shape, to, D=4):
+    """Windows packed at ``shape`` packed again at ``to`` by the bucket
+    rule: zeros after every segment, each window's row 0 after its
+    observations."""
+    segs = _segments(ints, *shape, D)
+    W, (E, L, N) = len(ints), to
+    parts = []
+    for k, n in zip(SEGMENTS, (E, E, L, L, N, N, N, N)):
+        a = segs[k]
+        out = np.zeros((W, n) + a.shape[2:], a.dtype)
+        out[:, : a.shape[1]] = a
+        parts.append(out.reshape(W, -1))
+    z = np.repeat(obs_z[:, :1], N, axis=1)
+    z[:, : obs_z.shape[1]] = obs_z
+    return np.concatenate(parts, axis=1), z
+
+
 def test_sweep_plan_matches_jax(odo_maps):
-    """The first phase's windows, ownership masks and packed structure,
-    bucket and observations are the JAX engine's, bit for bit, and so are
-    the masters and the scaled prior table it starts from."""
+    """The first phase's windows, ownership masks, packed structure and
+    observations are the JAX engine's cut to the port's shape, bit for
+    bit, and so are the masters and the scaled prior table it starts
+    from.  The sweep packs a phase to its windows' real maxima rounded up
+    to 8, not to JAX's bucket: what JAX holds past the cut is padding
+    alone."""
     jcap, tcap = odo_maps["jcap"], odo_maps["tcap"]
-    assert (tcap["E"], tcap["L"], tcap["N"]) == \
-        (jcap["E"], jcap["L"], jcap["N"])
-    for k in ("ints", "obs_z", "whitener", "spinv"):
+    shape = (tcap["E"], tcap["L"], tcap["N"])
+    jshape = (jcap["E"], jcap["L"], jcap["N"])
+    jsegs = _segments(jcap["ints"], *jshape)
+    real = _real_counts(jsegs).max(axis=0)
+    assert shape == tuple(int(-(-n // 8) * 8) for n in real)
+    assert all(s <= j for s, j in zip(shape, jshape)), (shape, jshape)
+    tsegs = _segments(tcap["ints"], *shape)
+    for k, n in zip(SEGMENTS, (shape[0],) * 2 + (shape[1],) * 2
+                    + (shape[2],) * 4):
+        np.testing.assert_array_equal(tsegs[k], jsegs[k][:, :n], err_msg=k)
+        assert not jsegs[k][:, n:].any(), k
+    np.testing.assert_array_equal(tcap["obs_z"],
+                                  jcap["obs_z"][:, : shape[2]])
+    for k in ("whitener", "spinv"):
         np.testing.assert_array_equal(tcap[k], jcap[k], err_msg=k)
     n_e = odo_maps["teng"].state.num_edges
     n_l = odo_maps["teng"].state.num_lms
@@ -172,6 +231,57 @@ def test_sweep_plan_matches_jax(odo_maps):
     np.testing.assert_array_equal(tcap["prior"][:n_e], jcap["prior"][:n_e])
     np.testing.assert_array_equal(tcap["lm"][:n_l], jcap["lm"][:n_l])
     assert tcap["ints"].shape[0] > 1      # several windows in one solve
+
+
+def test_sweep_step_at_real_sizes_matches_the_bucket(odo_maps):
+    """The first phase's windows solved at the port's shape and padded
+    again to the bucket the keyframe path would use: the padded slots
+    are exact zeros in every product, so the two solves differ only in
+    the order of f32 sums."""
+    tcap, jcap = odo_maps["tcap"], odo_maps["jcap"]
+    shape = (tcap["E"], tcap["L"], tcap["N"])
+    bucket = (jcap["E"], jcap["L"], jcap["N"])
+    assert shape != bucket
+    ints_b, obs_z_b = _repad(tcap["ints"], tcap["obs_z"], shape, bucket)
+    np.testing.assert_array_equal(ints_b, jcap["ints"])   # the old pack
+    step = tmw.make_sweep_step(odo_maps["teng"]._solver_cfg)
+    out = {}
+    for key, ints, obs_z, (E, L, N) in (
+            ("cut", tcap["ints"], tcap["obs_z"], shape),
+            ("bucket", ints_b, obs_z_b, bucket)):
+        out[key] = step(
+            torch.tensor(tcap["pose"]), torch.tensor(tcap["prior"]),
+            torch.tensor(tcap["lm"]), ints, obs_z,
+            torch.tensor(tcap["whitener"]), torch.tensor(tcap["spinv"]),
+            None, E, L, N)
+    (pc, lc, ic), (pb, lb, ib) = out["cut"], out["bucket"]
+    np.testing.assert_allclose(pc.numpy(), pb.numpy(), atol=MASTER_ATOL)
+    np.testing.assert_allclose(lc.numpy(), lb.numpy(), atol=MASTER_ATOL)
+    assert not torch.equal(pc, torch.as_tensor(tcap["pose"]))   # it moved
+    assert float(ic["err_final"]) == pytest.approx(float(ib["err_final"]),
+                                                   rel=ERR_RTOL)
+    assert float(ic["num_obs"]) == float(ib["num_obs"])
+    assert len(tcap["ints"]) == len(ints_b)
+
+
+def test_refine_map_refuses_a_cut_through_real_slots(monkeypatch):
+    """Windows whose real counts are understated would lose real slots to
+    the phase's cut: the pack raises before any solve, and the masters
+    stay as they were."""
+    eng, _, _ = _port(run_local=False)
+    real = eng._sweep_windows
+
+    def understated(*args):
+        return [(a, e_own, l_own, tuple(n // 2 for n in counts))
+                for a, e_own, l_own, counts in real(*args)]
+
+    monkeypatch.setattr(eng, "_sweep_windows", understated)
+    pose = eng.device_master.pose.clone()
+    lm = eng.device_master.lm.clone()
+    with pytest.raises(ValueError, match="real slot"):
+        eng.refine_map(sweeps=1, stride=3)
+    assert torch.equal(eng.device_master.pose, pose)
+    assert torch.equal(eng.device_master.lm, lm)
 
 
 def test_sweep_step_from_jax_masters_matches_jax(odo_maps):
